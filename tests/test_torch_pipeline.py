@@ -1,0 +1,46 @@
+"""The port's DeepMind pipeline against the JAX one (XLA path): same seeds
+and numpy actions give the same reward, done and lives, and observations
+within 1 grey level."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from toybox_tpu.envs.pipeline import make_rl_env as j_make_rl_env
+from toybox_tpu_torch.envs.pipeline import make_rl_env as t_make_rl_env
+
+
+@pytest.mark.parametrize("episodic_life,clip", [(True, True), (False, False)])
+def test_pipeline_matches_jax(episodic_life, clip):
+    n, steps = 4, 40
+    r = np.random.default_rng(11)
+    acts = r.choice(4, size=(steps, n), p=[.2, .4, .2, .2])
+    seeds = np.arange(n, dtype=np.uint32) + 3
+    jenv = j_make_rl_env("breakout", n, use_pallas=False,
+                         episodic_life=episodic_life, clip_rewards=clip)
+    tenv = t_make_rl_env("breakout", n, episodic_life=episodic_life,
+                         clip_rewards=clip, device="cpu")
+    assert tuple(tenv.obs_shape) == tuple(jenv.obs_shape)
+    assert tenv.num_actions == jenv.num_actions
+    jst, jo = jax.jit(jenv.reset)(jnp.asarray(seeds))
+    tst, to = tenv.reset(torch.as_tensor(seeds.astype(np.int64)))
+    assert tuple(to.shape) == (n, 84, 84, 4) and to.dtype == torch.uint8
+    assert np.abs(np.asarray(jo).astype(int) - to.numpy()).max() <= 1
+    jstep = jax.jit(jenv.step)
+    total = 0.0
+    for i in range(steps):
+        jst, jo, jr, jd, ji = jstep(jst, jnp.asarray(acts[i]))
+        tst, to, tr, td, ti = tenv.step(tst, torch.as_tensor(acts[i]))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(ti["lives"].numpy(),
+                                      np.asarray(ji["lives"]))
+        np.testing.assert_array_equal(ti["raw_reward"].numpy(),
+                                      np.asarray(ji["raw_reward"]))
+        diff = np.abs(np.asarray(jo).astype(int) - to.numpy().astype(int))
+        assert diff.max() <= 1, f"step {i}: obs differ by {diff.max()}"
+        total += float(np.asarray(ji["raw_reward"]).sum())
+    assert total > 0
+    np.testing.assert_array_equal(tst.lives.numpy(), np.asarray(jst.lives))

@@ -1,0 +1,38 @@
+"""Shared raster helpers for game engines (port of the part of
+toybox_tpu.games.common that Breakout's renderer needs)."""
+
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+U8 = torch.uint8
+
+# f32 luma weights, rounded once as the JAX package rounds them
+_LUMA_W = (0.299, 0.587, 0.114)
+
+
+def rect_mask(h: int, w: int, x0, y0, x1, y1, device=None) -> torch.Tensor:
+    """Boolean [..., h, w] mask of pixels with x in [x0, x1) and y in [y0, y1).
+
+    Bounds are python floats or f32 tensors of shape [...]; pixel
+    coordinates are the integer pixel indices as f32."""
+    ys = torch.arange(h, dtype=F32, device=device)[:, None]
+    xs = torch.arange(w, dtype=F32, device=device)[None, :]
+
+    def b(v):
+        return v[..., None, None] if torch.is_tensor(v) else v
+
+    return (xs >= b(x0)) & (xs < b(x1)) & (ys >= b(y0)) & (ys < b(y1))
+
+
+def luma(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 luma of f32 channel values, as ``0.299 r + 0.587 g + 0.114 b``."""
+    return (_LUMA_W[0] * r + _LUMA_W[1] * g) + _LUMA_W[2] * b
+
+
+def luma2d(rgba: torch.Tensor) -> torch.Tensor:
+    """RGBA uint8 [..., H, W, 4] -> grayscale uint8 [..., H, W]."""
+    f = rgba[..., :3].to(F32)
+    g = luma(f[..., 0], f[..., 1], f[..., 2])
+    return g.clamp(0, 255).to(torch.int32).to(U8)

@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line with its own wall time:
+It drives the regress (serving) path of each ported game (Breakout, Space
+Invaders, Amidar) with the game's committed PPO model and frame kernel.
+Phases, each printing one line per game with its own wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the Breakout frame kernel with nvcc;
-  3. the kernel against its plain PyTorch version on the card, single and
-     fused frames, at N = 10 (the serve), 256 and 1024 envs: exactly equal;
-     kernel, plain and bound times at N = 1024;
-  4. the engine stepped on cuda and on cpu from the same seeds and actions
-     for 200 steps: every state tensor bit-equal; the pipeline and the
+  2. build every frame kernel (csrc/*.cu) with nvcc, all at once;
+  3. each kernel against its plain PyTorch version on the card, single
+     and fused frames, at N = 10 (the serve), 256 and 1024 envs: exactly
+     equal; kernel, plain and bound times at N = 1024;
+  4. the batched engine stepped on cuda and on cpu from the same seeds
+     and actions: every state tensor bit-equal; the pipeline and the
      policy on cuda and on cpu: rewards equal, observations within 1 grey
      level, logits and values within 1e-4;
-  5. serve (the main path): the committed Breakout PPO model through the
-     regress entry point, 10 games for at most 1000 agent steps; the frame
-     kernels must have launched and the games must score;
+  5. serve (the main path): the committed PPO model through the regress
+     entry point, 10 games for at most SERVE_STEPS agent steps, with the
+     launch counts set to 0 just before and read just after; the game's
+     frame kernels must have launched and the games must score;
   6. throughput: 1024 envs x 100 pipeline steps with the policy;
   7. a short torch.profiler window at 10 and 1024 envs: device kernels
      and device busy time per agent step.
@@ -40,20 +43,25 @@ import torch
 from toybox_tpu_torch.core.actions import ale_to_input
 from toybox_tpu_torch.envs.batched import make_batched_env
 from toybox_tpu_torch.envs.pipeline import make_rl_env
+from toybox_tpu_torch.games import amidar as am
 from toybox_tpu_torch.games import breakout as bk
-from toybox_tpu_torch.ops import render_cuda
+from toybox_tpu_torch.games import space_invaders as si
+from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 from toybox_tpu_torch.regress import full_f32, play_games
 from toybox_tpu_torch.rl.checkpoint import load_state_dict
 from toybox_tpu_torch.rl.policies import build_eval_policy
 
-MODEL = Path(__file__).resolve().parent / "models" / "Breakout.regress.model"
+MODELS = Path(__file__).resolve().parent / "models"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
-SERVE_GAMES, SERVE_STEPS = 10, 1000
+SERVE_GAMES, SERVE_STEPS = 10, 500
 THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 100
 ENGINE_ENVS, ENGINE_STEPS = 256, 200
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
 PROFILE_STEPS = 10
+KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
+DEV = "cuda"
+PALLAS = "toybox_tpu/ops/render_pallas.py"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -80,16 +88,35 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def engine_states(cfg: bk.Config, n: int, steps: int, seed: int):
-    """Two consecutive state batches from the port engine after random
-    play: balls in play, bricks knocked out, env 0's paddle moved up, one
-    env in every 7 waiting to serve."""
+def _rows(module, s, n: int):
+    return module.State(**{f: getattr(s, f)[:n] for f in module.FIELDS})
+
+
+def _random_play(module, cfg, n, steps, seed, fire_every=10, start=None):
+    """States after `steps` frames of random play (FIRE every
+    `fire_every` frames), from new games or from `start(state)`."""
     r = np.random.default_rng(seed)
-    s = bk.new_game(cfg, torch.arange(n, device=cfg.device) + seed)
-    legal = np.asarray(bk.LEGAL_ACTIONS)
+    s = module.new_game(cfg, torch.arange(n, device=cfg.device) + seed)
+    if start is not None:
+        s = start(s)
+    legal = np.asarray(module.LEGAL_ACTIONS)
     for i in range(steps):
-        a = np.where(i % 10 == 0, 1, r.choice(legal, n))
-        s = bk.step(cfg, s, ale_to_input(torch.as_tensor(a, device=cfg.device)))
+        a = np.where(i % fire_every == 0, 1, r.choice(legal, n))
+        s = module.step(cfg, s, ale_to_input(torch.as_tensor(
+            a, device=cfg.device)))
+    return s, r
+
+
+def _next(module, cfg, s, r):
+    return module.step(cfg, s, ale_to_input(torch.as_tensor(
+        r.choice(np.asarray(module.LEGAL_ACTIONS), s.score.shape[0]),
+        device=cfg.device)))
+
+
+def breakout_states(cfg, n: int, seed: int):
+    """Balls in play, bricks knocked out, env 0's paddle moved up, one env
+    in every 7 waiting to serve."""
+    s, r = _random_play(bk, cfg, n, 60, seed)
     alive = s.brick_alive & torch.as_tensor(
         r.random((n, bk.MAX_BRICKS)) > 0.3, device=cfg.device)
     py = s.paddle_y.clone()
@@ -97,27 +124,89 @@ def engine_states(cfg: bk.Config, n: int, steps: int, seed: int):
     wait = torch.zeros(n, dtype=torch.bool, device=cfg.device)
     wait[::7] = True
     s = s.replace(brick_alive=alive, paddle_y=py, reset=s.reset | wait)
-    s2 = bk.step(cfg, s, ale_to_input(
-        torch.as_tensor(r.choice(legal, n), device=cfg.device)))
-    return s, s2
-
-
-def kernel_phase(cfg: bk.Config):
-    """Exact comparison at the main path's shapes; times at N = 1024."""
-    lumas = render_cuda.breakout_lumas(cfg)
-    s1, s2 = engine_states(cfg, THROUGHPUT_ENVS, 60, seed=1)
-    check(int((s1.ball_alive & ~s1.reset[:, None]).sum()) > 0,
+    check(int((s.ball_alive & ~s.reset[:, None]).sum()) > 0,
           "no ball in play in the kernel test states")
-    err = {"breakout_frame": 0, "breakout_frame_fused": 0}
+    return s, _next(bk, cfg, s, r)
+
+
+def si_states(cfg, n: int, seed: int):
+    """The formation marching and thinned, lasers in flight, shields
+    eroded, the UFO over the formation in one env in 5, the ship down in
+    one env in 7."""
+    def start(s):
+        return s.replace(life_display_timer=torch.ones_like(s.lives))
+
+    s, r = _random_play(si, cfg, n, 300, seed, fire_every=3, start=start)
+    ufo = torch.zeros(n, dtype=torch.bool, device=cfg.device)
+    ufo[::5] = True
+    down = torch.zeros(n, dtype=torch.bool, device=cfg.device)
+    down[::7] = True
+    s = s.replace(
+        ufo_appearance_counter=torch.where(ufo, 0, s.ufo_appearance_counter),
+        ufo_x=torch.where(ufo, torch.as_tensor(
+            r.integers(-10, 320, n), device=cfg.device,
+            dtype=torch.int32), s.ufo_x),
+        ship_alive=s.ship_alive & ~down,
+        ship_death_counter=torch.where(down, -1, s.ship_death_counter))
+    check(not bool(s.shield_alpha.all()), "no shield eroded")
+    check(int((s.ship_laser_alive | s.elaser_alive.any(1)).sum()) > 0,
+          "no laser in flight in the kernel test states")
+    return s, _next(si, cfg, s, r)
+
+
+def amidar_states(cfg, n: int, seed: int):
+    """Tiles painted, enemies on their routes, a random third of the
+    boxes painted (their interiors draw)."""
+    s, r = _random_play(am, cfg, n, 150, seed)
+    painted = s.box_painted | torch.as_tensor(
+        r.random((n, am.MAX_BOXES)) > 0.7, device=cfg.device)
+    s = s.replace(box_painted=painted)
+    check(int((s.tiles == am.PAINTED).sum()) > int(
+        (cfg.base_tiles == am.PAINTED).sum()) * n, "no tile painted")
+    return s, _next(am, cfg, s, r)
+
+
+@dataclasses.dataclass(frozen=True)
+class Game:
+    """One ported game: its engine, model, frame kernel and checks."""
+    name: str
+    module: object
+    model: str
+    kernel: str                  # csrc/<kernel>.cu
+    replaces: tuple              # render_pallas.py lines: single, fused
+    ops: object                  # module with render_frames, frame_plain
+    prep: object                 # (config, state) -> f32[N, P]
+    consts: object               # config -> kernel constants
+    states: object               # (config, n, seed) -> (s1, s2)
+
+
+GAMES = (
+    Game("breakout", bk, "Breakout.regress.model", "breakout_frame",
+         (307, 324), render_cuda, lambda c, s: render_cuda.breakout_prep(s),
+         render_cuda.breakout_lumas, breakout_states),
+    Game("space_invaders", si, "SpaceInvaders.regress.model", "si_frame",
+         (710, 722), render_si, lambda c, s: render_si.si_prep(s),
+         render_si.si_consts, si_states),
+    Game("amidar", am, "Amidar.regress.model", "amidar_frame", (475, 489),
+         render_amidar, render_amidar.amidar_prep,
+         render_amidar.amidar_consts, amidar_states),
+)
+
+
+def kernel_phase(g: Game):
+    """Exact comparison at the main path's shapes; times at N = 1024."""
+    cfg = g.module.default_config(DEV)
+    consts = g.consts(cfg)
+    s1, s2 = g.states(cfg, THROUGHPUT_ENVS, 1)
+    names = (g.kernel, g.kernel + "_fused")
+    err = {k: 0 for k in names}
     preps = {}
-    for n in (SERVE_GAMES, 256, THROUGHPUT_ENVS):
-        p1 = render_cuda.breakout_prep(_rows(s1, n))
-        p2 = render_cuda.breakout_prep(_rows(s2, n))
-        for name, prep in (("breakout_frame", p1[:, None]),
-                           ("breakout_frame_fused",
-                            torch.stack([p1, p2], 1))):
-            got = render_cuda.render_frames(prep, lumas)
-            want = render_cuda.frame_plain(prep, lumas)
+    for n in KERNEL_ENVS:
+        p1 = g.prep(cfg, _rows(g.module, s1, n))
+        p2 = g.prep(cfg, _rows(g.module, s2, n))
+        for name, prep in zip(names, (p1[:, None], torch.stack([p1, p2], 1))):
+            got = g.ops.render_frames(prep, consts)
+            want = g.ops.frame_plain(prep, consts)
             torch.cuda.synchronize()
             diff = int((got.int() - want.int()).abs().max())
             check(diff == 0, f"{name} differs from its plain version by "
@@ -125,153 +214,199 @@ def kernel_phase(cfg: bk.Config):
             err[name] = max(err[name], diff)
             preps[name] = prep
     timing = {}
+    h, w = g.module.HEIGHT, g.module.WIDTH
     for name, prep in preps.items():
         frames = prep.shape[1]
-        n_bytes = prep.numel() * 4 + prep.shape[0] * bk.HEIGHT * bk.WIDTH
+        n_bytes = prep.numel() * 4 + prep.shape[0] * h * w
         # one select per pixel and frame, one max per pixel for two frames
-        n_ops = prep.shape[0] * bk.HEIGHT * bk.WIDTH * (2 * frames - 1)
+        n_ops = prep.shape[0] * h * w * (2 * frames - 1)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         timing[name] = dict(
-            ms=cuda_ms(lambda: render_cuda.render_frames(prep, lumas)),
-            plain_ms=cuda_ms(lambda: render_cuda.frame_plain(prep, lumas)),
+            ms=cuda_ms(lambda: g.ops.render_frames(prep, consts)),
+            plain_ms=cuda_ms(lambda: g.ops.frame_plain(prep, consts)),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             n=prep.shape[0])
     return err, timing
 
 
-def _rows(s: bk.State, n: int) -> bk.State:
-    return bk.State(**{f: getattr(s, f)[:n] for f in bk.FIELDS})
+def _engine_start(g: Game, st, d):
+    """Breakout: half the envs start with the low rows gone, so their
+    balls reach the deep rows early and take the speed-up rescale. Space
+    Invaders: no intro pause. Amidar and Space Invaders: one life left, so
+    games end and reset inside the run."""
+    game = st.game
+    idx = torch.arange(ENGINE_ENVS, device=d)
+    if g.name == "breakout":
+        low = (game.brick_depth < 3) & (idx % 2 == 0)[:, None]
+        game = game.replace(brick_alive=game.brick_alive & ~low)
+    else:
+        game = game.replace(lives=torch.ones_like(game.lives))
+    if g.name == "space_invaders":
+        game = game.replace(life_display_timer=torch.ones_like(game.lives))
+    return dataclasses.replace(st, game=game)
 
 
-def engine_phase() -> str:
+def engine_phase(g: Game) -> str:
     """Batched engine (with auto-reset) on cuda and on cpu, bit-equal."""
-    envs = {d: make_batched_env("breakout", ENGINE_ENVS,
-                                fast_auto_reset=True, device=d)
-            for d in ("cuda", "cpu")}
+    envs = {d: make_batched_env(g.name, ENGINE_ENVS, fast_auto_reset=True,
+                                device=d) for d in (DEV, "cpu")}
     seeds = np.arange(ENGINE_ENVS) + 100
-    states = {}
-    for d, env in envs.items():
-        st, _ = env.reset(torch.as_tensor(seeds, device=d))
-        # half the envs start with the low rows gone, so their balls reach
-        # the deep rows early and take the speed-up rescale
-        low = (st.game.brick_depth < 3) & (torch.arange(ENGINE_ENVS,
-                                                        device=d) % 2 == 0
-                                           )[:, None]
-        game = st.game.replace(brick_alive=st.game.brick_alive & ~low)
-        states[d] = dataclasses.replace(st, game=game)
+    states = {d: _engine_start(g, env.reset(torch.as_tensor(
+        seeds, device=d))[0], d) for d, env in envs.items()}
+    n_act = envs["cpu"].num_actions
     r = np.random.default_rng(7)
+    steps = ENGINE_STEPS if g.name == "breakout" else 2 * ENGINE_STEPS
     n_done = 0
-    for i in range(ENGINE_STEPS):
-        a = r.choice(4, size=ENGINE_ENVS, p=[.2, .4, .2, .2])
+    for i in range(steps):
+        a = r.integers(0, n_act, size=ENGINE_ENVS)
+        a[r.random(ENGINE_ENVS) < 0.3] = 1          # FIRE (or jump) often
         out = {}
         for d, env in envs.items():
             states[d], _, rew, done, _ = env.step(
                 states[d], torch.as_tensor(a, device=d))
             out[d] = (rew, done)
-        if i % 10 == 9 or i == ENGINE_STEPS - 1:
-            for f in bk.FIELDS:
-                g, c = (getattr(states[d].game, f).cpu() for d in
-                        ("cuda", "cpu"))
-                check(torch.equal(g, c), f"engine field {f} differs between "
-                                         f"cuda and cpu at step {i}")
+        if i % 10 == 9 or i == steps - 1:
+            for f in g.module.FIELDS:
+                c, h = (getattr(states[d].game, f).cpu() for d in
+                        (DEV, "cpu"))
+                check(torch.equal(c, h), f"{g.name} engine field {f} differs "
+                                         f"between cuda and cpu at step {i}")
             for k in (0, 1):
-                check(torch.equal(out["cuda"][k].cpu(), out["cpu"][k]),
-                      f"reward/done differ between cuda and cpu at step {i}")
-            check(torch.equal(states["cuda"].seeds.cpu(),
-                              states["cpu"].seeds), "reseeds differ")
+                check(torch.equal(out[DEV][k].cpu(), out["cpu"][k]),
+                      f"{g.name} reward/done differ between cuda and cpu at "
+                      f"step {i}")
+            check(torch.equal(states[DEV].seeds.cpu(), states["cpu"].seeds),
+                  f"{g.name} reseeds differ")
         n_done += int(out["cpu"][1].sum())
-    g = states["cpu"].game
-    speed = torch.sqrt(g.ball_vx ** 2 + g.ball_vy ** 2)
-    fast = int(((speed > 3.0) & g.ball_alive).any(1).sum())
-    check(fast > 0, "no env took the speed-up rescale")
-    return (f"{ENGINE_ENVS} envs x {ENGINE_STEPS} steps bit-equal; "
-            f"{fast} envs with fast balls, {n_done} game overs, "
-            f"score {int(g.score.sum())}")
+    gs = states["cpu"].game
+    detail = (f"{g.name} {ENGINE_ENVS} envs x {steps} steps bit-equal; "
+              f"{n_done} game overs, score {int(gs.score.sum())}")
+    if g.name == "breakout":
+        speed = torch.sqrt(gs.ball_vx ** 2 + gs.ball_vy ** 2)
+        fast = int(((speed > 3.0) & gs.ball_alive).any(1).sum())
+        check(fast > 0, "no env took the speed-up rescale")
+        detail += f", {fast} envs with fast balls"
+    else:
+        check(n_done > 0, f"no {g.name} game ended in the engine run")
+    return detail
 
 
-def _policy_run(state_dict, n: int, device: str):
-    env = make_rl_env("breakout", n, device=device)
+def _policy_run(g: Game, state_dict, n: int, device: str):
+    env = make_rl_env(g.name, n, device=device)
     module, p_step = build_eval_policy("ppo", env.obs_shape, env.num_actions,
                                        "cnn", device=device)
     module.load_state_dict(state_dict)
     return env, module, p_step
 
 
-def pipeline_phase(state_dict) -> str:
+def pipeline_phase(g: Game, state_dict) -> str:
     """The DeepMind pipeline and the policy on cuda against cpu, on the
     same seeds and actions: reward, done and lives exact, observations
     within 1 grey level (the warp's matmul sums in another order), logits
     and values within 1e-4 on the same observations."""
     n = PIPELINE_ENVS
-    runs = {d: _policy_run(state_dict, n, d) for d in ("cuda", "cpu")}
+    runs = {d: _policy_run(g, state_dict, n, d) for d in (DEV, "cpu")}
     states = {d: run[0].reset(torch.arange(n, device=d))[0]
               for d, run in runs.items()}
+    n_act = runs["cpu"][0].num_actions
     r = np.random.default_rng(5)
     obs_diff, logit_diff, reward = 0, 0.0, 0.0
     for i in range(PIPELINE_STEPS):
-        a = r.choice(4, size=n, p=[.2, .4, .2, .2])
+        a = r.integers(0, n_act, size=n)
+        a[r.random(n) < 0.4] = 1
         out = {}
         for d, (env, _, _) in runs.items():
             states[d], obs, rew, done, info = env.step(
                 states[d], torch.as_tensor(a, device=d))
             out[d] = (obs, rew, done, info["lives"])
         for k in (1, 2, 3):
-            check(torch.equal(out["cuda"][k].cpu(), out["cpu"][k]),
-                  f"pipeline reward/done/lives differ at step {i}")
-        obs_diff = max(obs_diff, int((out["cuda"][0].cpu().int()
+            check(torch.equal(out[DEV][k].cpu(), out["cpu"][k]),
+                  f"{g.name} pipeline reward/done/lives differ at step {i}")
+        obs_diff = max(obs_diff, int((out[DEV][0].cpu().int()
                                       - out["cpu"][0].int()).abs().max()))
         reward += float(out["cpu"][1].sum())
         with torch.no_grad():
             obs = out["cpu"][0]
-            lc, vc = runs["cuda"][1](obs.cuda())
+            lc, vc = runs[DEV][1](obs.to(DEV))
             lp, vp = runs["cpu"][1](obs)
         logit_diff = max(logit_diff, float((lc.cpu() - lp).abs().max()),
                          float((vc.cpu() - vp).abs().max()))
-    check(obs_diff <= 1, f"pipeline obs differ by {obs_diff} grey levels")
-    check(logit_diff <= 1e-4, f"policy differs by {logit_diff}")
-    return (f"pipeline {n} envs x {PIPELINE_STEPS} steps: reward/done/lives "
-            f"equal (reward {reward}), obs max diff {obs_diff}; policy "
-            f"max diff {logit_diff:.2e}")
+    check(obs_diff <= 1, f"{g.name} pipeline obs differ by {obs_diff} grey "
+                         "levels")
+    check(logit_diff <= 1e-4, f"{g.name} policy differs by {logit_diff}")
+    return (f"{g.name} pipeline {n} envs x {PIPELINE_STEPS} steps: "
+            f"reward/done/lives equal (reward {reward}), obs max diff "
+            f"{obs_diff}; policy max diff {logit_diff:.2e}")
 
 
-def throughput_phase(state_dict, kernel_ms: float) -> str:
+def serve_phase(g: Game, state_dict):
+    """The main path: the regress entry point's play_games with the
+    committed model, the launch counts set to 0 just before it and read
+    just after."""
+    chunks = []
+    for k in render_cuda.LAUNCHES:
+        render_cuda.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    scores = play_games(g.name, state_dict, "cnn", SERVE_GAMES, chunk=100,
+                        device=DEV, max_frames=4 * SERVE_STEPS,
+                        on_chunk=lambda steps, tot: chunks.append(
+                            (steps, float(tot.sum()))))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(render_cuda.LAUNCHES)
+    mine = {k: launches[k] for k in (g.kernel, g.kernel + "_fused")}
+    check(all(v > 0 for v in mine.values()),
+          f"a {g.name} frame kernel did not launch in the serve: {launches}")
+    check(float(scores.sum()) > 0 and np.isfinite(scores).all(),
+          f"{g.name} serve scored {scores.tolist()}")
+    steps = chunks[-1][0]
+    so_far = " ".join(f"{k}:{v:g}" for k, v in chunks)
+    detail = (f"{g.name} {SERVE_GAMES} games, {steps} agent steps, total "
+              f"score so far by agent step {so_far}; scores "
+              f"{scores.tolist()}, mean {float(scores.mean()):.1f}, "
+              f"{steps / dt:.1f} agent-steps/s, launches {launches}")
+    return mine, detail
+
+
+def throughput_phase(g: Game, state_dict, kernel_ms: float) -> str:
     """1024 envs x 100 pipeline steps with the policy sampling actions."""
     n = THROUGHPUT_ENVS
-    env, _, p_step = _policy_run(state_dict, n, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    st, _ = env.reset(torch.arange(n, device="cuda"))
+    env, _, p_step = _policy_run(g, state_dict, n, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    st, _ = env.reset(torch.arange(n, device=DEV))
     for _ in range(3):
         actions, _, _, _ = p_step(st.frames, gen)
         st, _, _, _, _ = env.step(st, actions)
     torch.cuda.synchronize()
-    before = render_cuda.LAUNCHES["breakout_frame_fused"]
+    key = g.kernel + "_fused"
+    before = render_cuda.LAUNCHES[key]
     t1 = time.perf_counter()
     for _ in range(THROUGHPUT_STEPS):
         actions, _, _, _ = p_step(st.frames, gen)
         st, obs, _, _, _ = env.step(st, actions)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    fused = render_cuda.LAUNCHES["breakout_frame_fused"] - before
+    fused = render_cuda.LAUNCHES[key] - before
     check(tuple(obs.shape) == (n, 84, 84, 4), f"obs shape {obs.shape}")
     share = fused * kernel_ms / (wall * 1e3)
-    return (f"{n} envs x {THROUGHPUT_STEPS} steps in {wall:.3f} s: "
+    return (f"{g.name} {n} envs x {THROUGHPUT_STEPS} steps in {wall:.3f} s: "
             f"{n * THROUGHPUT_STEPS * 4 / wall:.0f} frames/s, "
             f"{n * THROUGHPUT_STEPS / wall:.0f} agent-steps/s; fused kernel "
             f"~{100 * share:.2f}% of the time ({fused} launches x phase-3 "
             f"kernel time)")
 
 
-def profile_phase(state_dict, n: int, steps: int) -> str:
+def profile_phase(g: Game, state_dict, n: int, steps: int) -> str:
     """Device time of `steps` agent steps (policy + pipeline) at n envs,
     from torch.profiler's CUDA kernel records, against the same window's
     wall time measured without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    env, _, p_step = _policy_run(state_dict, n, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    st, _ = env.reset(torch.arange(n, device="cuda"))
+    env, _, p_step = _policy_run(g, state_dict, n, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    st, _ = env.reset(torch.arange(n, device=DEV))
 
     def window(st):
         for _ in range(steps):
@@ -290,12 +425,12 @@ def profile_phase(state_dict, n: int, steps: int) -> str:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return (f"{n} envs: {wall_us / steps / 1e3:.2f} ms/agent step; "
-                "device time not measured (no CUDA records)")
+        return (f"{g.name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent "
+                "step; device time not measured (no CUDA records)")
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     frame = sum(e.time_range.elapsed_us() for e in kernels
-                if "breakout_frame" in e.name)
-    return (f"{n} envs: {wall_us / steps / 1e3:.2f} ms/agent step, "
+                if g.kernel in e.name)
+    return (f"{g.name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent step, "
             f"{len(kernels) / steps:.0f} device kernels/step, device busy "
             f"{busy / steps:.0f} us/step ({100 * busy / wall_us:.1f}% of the "
             f"unprofiled step), frame kernel {frame / steps:.1f} us/step")
@@ -319,74 +454,71 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib_path, log = render_cuda.build()
-    render_cuda.load_library()
-    ptxas = " | ".join(line.strip() for line in log.splitlines()
-                       if "registers" in line or "spill" in line)
-    phase(2, "build", t0, f"{lib_path.name} [{ptxas or 'cached'}]")
+    built = render_cuda.build()
+    check({g.kernel for g in GAMES} <= set(built),
+          f"kernels missing from the build: {sorted(built)}")
+    for g in GAMES:
+        render_cuda.load_library(g.kernel)
+    phase(2, "build", t0, "; ".join(
+        f"{path.name} [" + (" | ".join(
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line) or "cached") + "]"
+        for path, log in built.values()))
 
-    # 3. kernel against plain
-    t0 = time.perf_counter()
-    cfg = bk.default_config("cuda")
-    err, timing = kernel_phase(cfg)
-    detail = "; ".join(
-        f"{k} N={v['n']}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}"
-        f" ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
-        for k, v in timing.items())
-    phase(3, "kernel", t0, f"exact at N={SERVE_GAMES},256,{THROUGHPUT_ENVS};"
-          f" {detail}")
+    # 3. kernels against their plain versions
+    err, timing = {}, {}
+    for g in GAMES:
+        t0 = time.perf_counter()
+        e, t = kernel_phase(g)
+        err.update(e)
+        timing.update(t)
+        phase(3, "kernel", t0, "exact at N=" + ",".join(
+            map(str, KERNEL_ENVS)) + "; " + "; ".join(
+                  f"{k} N={v['n']}: kernel {v['ms']:.4f} ms, plain "
+                  f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+                  f"({v['bound_by']})" for k, v in t.items()))
 
     # 4. engine, pipeline and policy: cuda against cpu
-    state_dict = load_state_dict(MODEL)
-    t0 = time.perf_counter()
-    phase(4, "engine", t0,
-          engine_phase() + "; " + pipeline_phase(state_dict))
+    state_dicts = {g.name: load_state_dict(MODELS / g.model) for g in GAMES}
+    for g in GAMES:
+        t0 = time.perf_counter()
+        phase(4, "engine", t0, engine_phase(g) + "; "
+              + pipeline_phase(g, state_dicts[g.name]))
 
-    # 5. serve: the main path
-    t0 = time.perf_counter()
-    chunks = []
-    for k in render_cuda.LAUNCHES:
-        render_cuda.LAUNCHES[k] = 0
-    scores = play_games("breakout", state_dict, "cnn", SERVE_GAMES,
-                        chunk=100, max_frames=4 * SERVE_STEPS,
-                        on_chunk=lambda steps, tot: chunks.append(
-                            (steps, float(tot.sum()))))
-    torch.cuda.synchronize()
-    launches = dict(render_cuda.LAUNCHES)
-    dt = time.perf_counter() - t0
-    steps = chunks[-1][0]
-    check(all(v > 0 for v in launches.values()),
-          f"a frame kernel did not launch in the serve: {launches}")
-    check(float(scores.sum()) > 0 and np.isfinite(scores).all(),
-          f"serve scored {scores.tolist()}")
-    so_far = " ".join(f"{k}:{v:g}" for k, v in chunks)
-    phase(5, "serve", t0, f"{SERVE_GAMES} games, {steps} agent steps, "
-          f"total score so far by agent step {so_far}; scores "
-          f"{scores.tolist()}, mean {float(scores.mean()):.1f}, "
-          f"{steps / dt:.1f} agent-steps/s, launches {launches}")
+    # 5. serve: the main path of each game
+    launches = {}
+    for g in GAMES:
+        t0 = time.perf_counter()
+        mine, detail = serve_phase(g, state_dicts[g.name])
+        launches.update(mine)
+        phase(5, "serve", t0, detail)
 
     # 6. throughput
-    t0 = time.perf_counter()
-    phase(6, "throughput", t0, throughput_phase(
-        state_dict, timing["breakout_frame_fused"]["ms"]))
+    for g in GAMES:
+        t0 = time.perf_counter()
+        phase(6, "throughput", t0, throughput_phase(
+            g, state_dicts[g.name], timing[g.kernel + "_fused"]["ms"]))
 
     # 7. device profile of a short window of the serve and of throughput
-    t0 = time.perf_counter()
-    phase(7, "profile", t0, "; ".join(
-        profile_phase(state_dict, n, PROFILE_STEPS)
-        for n in (SERVE_GAMES, THROUGHPUT_ENVS)))
+    for g in GAMES:
+        t0 = time.perf_counter()
+        phase(7, "profile", t0, "; ".join(
+            profile_phase(g, state_dicts[g.name], n, PROFILE_STEPS)
+            for n in (SERVE_GAMES, THROUGHPUT_ENVS)))
 
-    source = "toybox_tpu_torch/csrc/breakout_frame.cu"
-    replaces = {"breakout_frame": "toybox_tpu/ops/render_pallas.py:307",
-                "breakout_frame_fused": "toybox_tpu/ops/render_pallas.py:324"}
-    kernels = [dict(name=k, route="cuda", source=source, replaces=replaces[k],
-                    launches=launches[k], max_abs_err=err[k],
-                    ms=timing[k]["ms"], plain_ms=timing[k]["plain_ms"],
-                    bound_ms=timing[k]["bound_ms"],
-                    bound_by=timing[k]["bound_by"], library_ms=None)
-               for k in render_cuda.LAUNCHES]
+    kernels = []
+    for g in GAMES:
+        for name, line in zip((g.kernel, g.kernel + "_fused"), g.replaces):
+            t = timing[name]
+            kernels.append(dict(
+                name=name, route="cuda",
+                source=f"toybox_tpu_torch/csrc/{g.kernel}.cu",
+                replaces=f"{PALLAS}:{line}", launches=launches[name],
+                max_abs_err=err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

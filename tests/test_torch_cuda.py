@@ -1,4 +1,4 @@
-"""The Breakout frame kernel on the GPU against its plain PyTorch version.
+"""The frame kernels on the GPU against their plain PyTorch versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
@@ -7,8 +7,10 @@ import pytest
 import torch
 
 from toybox_tpu_torch.core.actions import ale_to_input
+from toybox_tpu_torch.games import amidar as am
 from toybox_tpu_torch.games import breakout as bk
-from toybox_tpu_torch.ops import render_cuda
+from toybox_tpu_torch.games import space_invaders as si
+from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +56,42 @@ def test_wrapper_rejects_non_contiguous(cuda_config):
     prep = torch.zeros(4, render_cuda.PREP, 2, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError):
         render_cuda.render_frames(prep, (0.0, 0.0, 0.0, 0.0))
+
+
+def _play(module, cfg, n=64, steps=150):
+    """States of ``module`` after random play, and one step more."""
+    s = module.new_game(cfg, torch.arange(n, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    legal = torch.as_tensor(module.LEGAL_ACTIONS, device="cuda")
+    for _ in range(steps):
+        a = legal[torch.randint(0, len(legal), (n,), device="cuda",
+                                generator=g)]
+        s = module.step(cfg, s, ale_to_input(a))
+    return s, module.step(cfg, s, ale_to_input(legal[torch.ones(
+        n, dtype=torch.long, device="cuda")]))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("game", ["space_invaders", "amidar"])
+def test_other_kernels_equal_plain_versions(cuda_config, game, fused):
+    if game == "space_invaders":
+        cfg = si.default_config("cuda")
+        s1, s2 = _play(si, cfg, steps=300)
+        preps = [render_si.si_prep(s) for s in (s1, s2)]
+        ops, consts, key = render_si, render_si.si_consts(cfg), "si_frame"
+    else:
+        cfg = am.default_config("cuda")
+        s1, s2 = _play(am, cfg)
+        painted = s1.box_painted | (torch.rand(
+            s1.box_painted.shape, device="cuda") > 0.7)
+        s1 = s1.replace(box_painted=painted)
+        preps = [render_amidar.amidar_prep(cfg, s) for s in (s1, s2)]
+        ops, consts = render_amidar, render_amidar.amidar_consts(cfg)
+        key = "amidar_frame"
+    prep = torch.stack(preps, 1) if fused else preps[0][:, None]
+    key += "_fused" if fused else ""
+    before = render_cuda.LAUNCHES[key]
+    got = ops.render_frames(prep, consts)
+    torch.cuda.synchronize()
+    assert render_cuda.LAUNCHES[key] == before + 1
+    assert torch.equal(got, ops.frame_plain(prep, consts))

@@ -116,3 +116,39 @@ def test_categorical_sample_follows_probabilities():
                                              dtype=torch.float64), atol=0.015)
     g2 = torch.Generator().manual_seed(0)
     assert torch.equal(TPd(logits).sample(g2), a)
+
+
+@pytest.mark.parametrize("model,game,n_actions", [
+    ("models/SpaceInvaders.regress.model", "space_invaders", 6),
+    ("models/Amidar.regress.model", "amidar", 10)])
+def test_other_regress_checkpoints_match_jax(model, game, n_actions):
+    """The Space Invaders and Amidar gate models: the reader leaf for leaf
+    against flax, then logits and values on the game's own pipeline
+    observations within 1e-4 of the JAX policy."""
+    init_fn, _ = j_build_eval_policy("ppo", OBS_SHAPE, n_actions, "cnn")
+    params = load_params(model, init_fn(jax.random.PRNGKey(0)))
+    ours = _leaves(checkpoint.load_flax_tree(model))
+    loaded = _leaves(serialization.to_state_dict(params))
+    assert set(ours) == set(loaded)
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], loaded[k], err_msg=k)
+    assert ours["/params/Dense_0/kernel"].shape == (512, n_actions)
+
+    env = make_rl_env(game, 4, device="cpu")
+    assert env.num_actions == n_actions
+    st, obs = env.reset(torch.arange(4))
+    r = np.random.default_rng(3)
+    for _ in range(30):
+        st, obs, _, _, _ = env.step(
+            st, torch.as_tensor(r.integers(0, n_actions, 4)))
+    obs = obs.numpy()
+    module, _ = build_eval_policy("ppo", OBS_SHAPE, n_actions, "cnn",
+                                  device="cpu")
+    module.load_state_dict(checkpoint.load_state_dict(model))
+    jmodule, _, _, _ = j_build_policy(OBS_SHAPE, n_actions, "cnn")
+    jl, jv = jmodule.apply(params, jnp.asarray(obs))
+    with torch.no_grad():
+        tl, tv = module(torch.as_tensor(obs))
+    assert tl.shape == (4, n_actions)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4, rtol=0)

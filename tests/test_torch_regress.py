@@ -25,16 +25,31 @@ def test_play_games_on_cpu_gives_finite_scores():
     assert seen == [16, 32, 48]
 
 
+@pytest.mark.parametrize("model,game", [
+    ("SpaceInvaders.regress.model", "space_invaders"),
+    ("Amidar.regress.model", "amidar")])
+def test_play_games_other_games_on_cpu(model, game):
+    scores = regress.play_games(
+        game, load_state_dict(ROOT / "models" / model), "cnn", 2,
+        device="cpu", chunk=16, max_frames=4 * 16 * 2)
+    assert scores.shape == (2,) and np.isfinite(scores).all()
+    assert (scores >= 0).all()
+
+
 def test_env_id_to_game():
     assert regress.env_id_to_game("BreakoutToyboxNoFrameskip-v4") == \
         "breakout"
+    assert regress.env_id_to_game("SpaceInvadersToyboxNoFrameskip-v4") == \
+        "space_invaders"
+    assert regress.env_id_to_game("AmidarToyboxNoFrameskip-v4") == "amidar"
     with pytest.raises(ValueError):
         regress.env_id_to_game("PongNoFrameskip-v4")
 
 
 def _port_files():
     files = sorted((ROOT / "toybox_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "scripts" / "port_op_counts.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -92,16 +92,18 @@ breakout_frame_kernel(const float* __restrict__ prep,
 }  // namespace
 
 // prep: f32[n, fused ? 2 : 1, 464]; out: u8[n, 160, 240]; both on `device`.
+// consts (host): the background, wall, paddle and ball lumas.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int breakout_frame(const float* prep, uint8_t* out, int n,
-                              int fused, float bg, float wall, float pad,
-                              float ball, int device, void* stream) {
+                              int fused, const float* consts, int n_consts,
+                              int device, void* stream) {
+  if (n_consts != 4) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     breakout_frame_kernel<<<n, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        prep, out, fused, bg, wall, pad, ball);
+        prep, out, fused, consts[0], consts[1], consts[2], consts[3]);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,12 +16,13 @@ import torch
 
 from toybox_tpu_torch.core import rng as _rng
 from toybox_tpu_torch.core.actions import ale_to_input
-from toybox_tpu_torch.games import breakout
+from toybox_tpu_torch.games import amidar, breakout, space_invaders
 
 I32 = torch.int32
 F32 = torch.float32
 
-GAMES = {"breakout": breakout}
+GAMES = {"breakout": breakout, "space_invaders": space_invaders,
+         "amidar": amidar}
 
 
 def get_game(name: str):
@@ -63,8 +64,11 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
 
     fast_auto_reset: skip the auto-reset select on the game's
     STEP_CONSTANT_FIELDS, which only new_game writes. Exact unless an
-    intervention changed one of them mid-run; training never does."""
+    intervention changed one of them mid-run; training never does. A game
+    that lists no such fields takes the full select."""
     module = get_game(game_name)
+    fast = fast_auto_reset and bool(getattr(module, "STEP_CONSTANT_FIELDS",
+                                            ()))
     if config is None:
         config = module.default_config(device)
     dev = config.device
@@ -102,7 +106,7 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
         new_seeds = (_rng.mul32(state.seeds, 2654435761) + num_envs) \
             & _rng.MASK32
         seeds = torch.where(done, new_seeds, state.seeds)
-        if fast_auto_reset:
+        if fast:
             fresh = module.dynamic_fields(config, _rng.seed(seeds))
         else:
             new = module.new_game(config, seeds)

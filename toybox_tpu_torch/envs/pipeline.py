@@ -2,7 +2,8 @@
 (port of toybox_tpu.envs.pipeline ``make_rl_env``).
 
 - skip-4 stepping, where only the last two of every four frames are
-  rendered, by the fused max-pool frame kernel (ops/render_cuda.py);
+  rendered, by the game's fused max-pool frame kernel (ops/render_cuda.py,
+  render_si.py, render_amidar.py);
 - the 84x84 bilinear warp as two f32 matmuls;
 - a 4-frame stack kept channel-first [N, 4, 84, 84], with an NHWC
   ``frames`` view at the public boundary, as in the JAX package;
@@ -21,7 +22,7 @@ import torch
 from toybox_tpu_torch.envs.batched import (BatchedEnvFns, get_game,
                                            make_batched_env)
 from toybox_tpu_torch.ops import obs as obs_ops
-from toybox_tpu_torch.ops import render_cuda
+from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 
 I32 = torch.int32
 F32 = torch.float32
@@ -29,6 +30,10 @@ F32 = torch.float32
 _RENDERERS = {
     "breakout": (render_cuda.make_breakout_gray_renderer,
                  render_cuda.make_breakout_gray_maxpool_renderer),
+    "space_invaders": (render_si.make_si_gray_renderer,
+                       render_si.make_si_gray_maxpool_renderer),
+    "amidar": (render_amidar.make_amidar_gray_renderer,
+               render_amidar.make_amidar_gray_maxpool_renderer),
 }
 
 

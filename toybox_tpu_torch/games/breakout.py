@@ -21,7 +21,8 @@ import torch
 from toybox_tpu_torch.core import jsonutil, rng
 from toybox_tpu_torch.core.actions import LEGAL_ACTIONS as _LEGAL
 from toybox_tpu_torch.core.types import Input
-from toybox_tpu_torch.games.common import F32, rect_mask
+from toybox_tpu_torch.games.common import (F32, pack_color, rect_mask,
+                                           unpack_color)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -79,18 +80,6 @@ _DEFAULT_CONFIG_JSON = {
     ],
     "rand": {"state": [11972506314117325106, 12454289224450883102]},
 }
-
-
-def pack_color(c) -> int:
-    """RGBA u8[4] -> packed u32 (r | g<<8 | b<<16 | a<<24) as a python int."""
-    c = [int(v) for v in np.asarray(c)]
-    return c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24)
-
-
-def unpack_color(p: torch.Tensor) -> torch.Tensor:
-    """packed u32 (int64) [...] -> u8[..., 4]."""
-    return torch.stack([(p >> s) & 0xFF for s in (0, 8, 16, 24)],
-                       dim=-1).to(torch.uint8)
 
 
 def _f32(v) -> float:

@@ -1,8 +1,11 @@
 """Shared raster helpers for game engines (port of the part of
-toybox_tpu.games.common that Breakout's renderer needs)."""
+toybox_tpu.games.common that the renderers need), and packed-RGBA colors:
+u32 ``r | g << 8 | b << 16 | a << 24`` held in python ints or int64
+tensors."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -36,3 +39,27 @@ def luma2d(rgba: torch.Tensor) -> torch.Tensor:
     f = rgba[..., :3].to(F32)
     g = luma(f[..., 0], f[..., 1], f[..., 2])
     return g.clamp(0, 255).to(torch.int32).to(U8)
+
+
+def pack_color(c) -> int:
+    """RGBA u8[4] -> packed u32 (r | g<<8 | b<<16 | a<<24) as a python int."""
+    c = [int(v) for v in np.asarray(c)]
+    return c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24)
+
+
+def unpack_color(p: torch.Tensor) -> torch.Tensor:
+    """packed u32 (int64) [...] -> u8[..., 4]."""
+    return torch.stack([(p >> s) & 0xFF for s in (0, 8, 16, 24)],
+                       dim=-1).to(U8)
+
+
+def luma_packed(packed: torch.Tensor) -> torch.Tensor:
+    """f32 luma of packed u32 RGBA colors (int64 tensor), as ``luma2d``
+    computes it from the unpacked channels."""
+    return luma((packed & 0xFF).to(F32), ((packed >> 8) & 0xFF).to(F32),
+                ((packed >> 16) & 0xFF).to(F32))
+
+
+def packed_lumas(colors) -> tuple:
+    """f32 lumas of packed colors (python ints), as python floats."""
+    return tuple(float(v) for v in luma_packed(torch.tensor(list(colors))))

@@ -1,14 +1,16 @@
-"""Breakout grey-frame rendering: the CUDA kernel, its plain version, the
-wrapper and the build helper (port of the Breakout part of
-toybox_tpu/ops/render_pallas.py).
+"""Frame kernels: the build and launch helpers shared by every CUDA source
+in ``csrc/``, and the Breakout grey frame (port of the Breakout part of
+toybox_tpu/ops/render_pallas.py; Space Invaders is in ``render_si.py``,
+Amidar in ``render_amidar.py``).
 
-``breakout_prep`` turns engine states into a small per-env table (brick
-luma grid and sprite intervals, see ``csrc/breakout_frame.cu``).
-``render_frames`` composes u8[N, 160, 240] frames from it: one frame, or
-the max of two (the skip-4 max-pool). For a CUDA tensor it launches the
-kernel in ``csrc/breakout_frame.cu``, built with ``nvcc`` at first use and
-loaded with ``ctypes``; for a CPU tensor it runs ``frame_plain``, the plain
-PyTorch version of the same arithmetic.
+Each frame kernel composes u8[N, H, W] grey frames from a small f32
+per-env table (the prep), one frame or the max of two (the skip-4
+max-pool). For a CUDA tensor ``run_frame_kernel`` launches the kernel,
+built with ``nvcc`` at first use and loaded with ``ctypes``; for a CPU
+tensor it runs the game's plain PyTorch version of the same arithmetic.
+
+``breakout_prep`` turns Breakout states into their table (brick luma grid
+and sprite intervals, see ``csrc/breakout_frame.cu``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from pathlib import Path
 import torch
 
 from toybox_tpu_torch.games import breakout as bk
-from toybox_tpu_torch.games.common import F32, U8, luma
+from toybox_tpu_torch.games.common import F32, U8, luma_packed, packed_lumas
 
 H, W = bk.HEIGHT, bk.WIDTH
 GRID_ROWS, GRID_COLS = bk.MAX_RENDER_ROWS, bk.N_COLS
@@ -32,33 +34,27 @@ SPRITE0 = GRID_ROWS * GRID_COLS           # 432
 N_SPRITES = 1 + bk.MAX_BALLS              # paddle + balls
 PREP = 464                                # floats per frame (padded)
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "breakout_frame.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
 # Kernel launches, counted by the wrapper (one per launch, nowhere else).
-LAUNCHES = {"breakout_frame": 0, "breakout_frame_fused": 0}
+LAUNCHES = {f"{k}{v}": 0 for k in ("breakout_frame", "si_frame",
+                                   "amidar_frame") for v in ("", "_fused")}
 
-_LIB = {}
+_KERNELS = {}
 
 
 # ---------------------------------------------------------------------------
 # Prep (PyTorch, any device)
 # ---------------------------------------------------------------------------
 
-def _luma_u32(packed: torch.Tensor) -> torch.Tensor:
-    """f32 luma of packed u32 RGBA colors (int64)."""
-    return luma((packed & 0xFF).to(F32), ((packed >> 8) & 0xFF).to(F32),
-                ((packed >> 16) & 0xFF).to(F32))
-
-
 def breakout_lumas(config: bk.Config) -> tuple:
     """(background, wall, paddle, ball) lumas as python floats holding f32."""
-    packed = torch.tensor([config.bg_color, config.frame_color,
-                           config.paddle_color, config.ball_color])
-    return tuple(float(v) for v in _luma_u32(packed))
+    return packed_lumas([config.bg_color, config.frame_color,
+                         config.paddle_color, config.ball_color])
 
 
 def breakout_prep(s: bk.State) -> torch.Tensor:
@@ -73,7 +69,7 @@ def breakout_prep(s: bk.State) -> torch.Tensor:
     idx = rows * GRID_COLS + cols
     show = (s.brick_alive & s.brick_exists).to(F32)
     zeros = torch.zeros((n, SPRITE0), dtype=F32, device=dev)
-    grid = zeros.scatter_add(1, idx, _luma_u32(s.brick_color) * show)
+    grid = zeros.scatter_add(1, idx, luma_packed(s.brick_color) * show)
     occ = zeros.scatter_add(1, idx, show)
     grid = torch.where(occ > 0, grid, torch.full((), -1.0, device=dev))
 
@@ -123,96 +119,133 @@ def _frame_plain_one(p: torch.Tensor, lumas) -> torch.Tensor:
     return img.clamp(0.0, 255.0)
 
 
-def frame_plain(prep: torch.Tensor, lumas) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: prep f32[N, F, PREP], F = 1
-    (one frame) or 2 (max of two frames) -> u8[N, H, W]."""
-    img = _frame_plain_one(prep[:, 0], lumas)
+def max_of_frames(one_frame, prep: torch.Tensor, consts) -> torch.Tensor:
+    """A frame kernel's plain version from its one-frame form
+    ``one_frame(f32[N, P], consts) -> f32[N, H, W]``: prep f32[N, F, P],
+    F = 1 (one frame) or 2 (max of two frames) -> u8[N, H, W]. The max
+    comes before the truncation, as in the kernels (truncation is
+    monotone, so it equals the max of the truncated frames)."""
+    img = one_frame(prep[:, 0], consts)
     if prep.shape[1] == 2:
-        img = torch.maximum(img, _frame_plain_one(prep[:, 1], lumas))
+        img = torch.maximum(img, one_frame(prep[:, 1], consts))
     return img.to(torch.int32).to(U8)
 
 
+def frame_plain(prep: torch.Tensor, lumas) -> torch.Tensor:
+    """Plain PyTorch version of the Breakout kernel."""
+    return max_of_frames(_frame_plain_one, prep, lumas)
+
+
 # ---------------------------------------------------------------------------
-# Build and launch
+# Build and launch (every frame kernel)
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
+def _nvcc() -> list:
+    """The compiler's command (a list, so that a test can put a stand-in
+    behind an interpreter)."""
     found = shutil.which("nvcc")
     if found:
-        return found
+        return [found]
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
-        return default
+        return [default]
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       f"the kernels in {CSRC}")
 
 
-def build() -> tuple:
-    """Compile the kernel with nvcc into BUILD_DIR (keyed by a hash of the
-    source and flags) unless it is there. Returns (library path, compiler
-    output, or "" when the library was already built)."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"breakout_frame-{key[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
+def _library_path(src: Path) -> Path:
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{key[:16]}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    if "lib" not in _LIB:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        lib.breakout_frame.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.breakout_frame.restype = ctypes.c_int
-        _LIB["lib"] = lib
-    return _LIB["lib"]
+def build() -> dict:
+    """Compile every ``csrc/*.cu`` into BUILD_DIR (keyed by a hash of its
+    source and the flags) unless it is there, one nvcc per source, all
+    started together. Returns {kernel name: (library path, compiler
+    output, or "" when the library was already built)}."""
+    built, running = {}, {}
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = _library_path(src)
+        if lib.exists():
+            built[src.stem] = (lib, "")
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+        os.close(fd)
+        proc = subprocess.Popen([*_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running[src.stem] = (src, lib, tmp, proc)
+    failed = []
+    for name, (src, lib, tmp, proc) in running.items():
+        out, err = proc.communicate()
+        try:
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n"
+                              f"{out}{err}")
+            else:
+                os.replace(tmp, lib)
+                built[name] = (lib, out + err)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+def load_library(name: str):
+    """The C entry point of kernel ``name`` (``csrc/<name>.cu``), building
+    every kernel at first use. All share one signature: (prep, out, n,
+    fused, consts, n_consts, device, stream) -> CUDA error code."""
+    if name not in _KERNELS:
+        path, _ = build()[name]
+        fn = getattr(ctypes.CDLL(str(path)), name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _KERNELS[name] = fn
+    return _KERNELS[name]
+
+
+def run_frame_kernel(name: str, prep: torch.Tensor, prep_len: int,
+                     hw: tuple, consts, plain) -> torch.Tensor:
+    """prep f32[N, F, prep_len] (F = 1 one frame, F = 2 max of two frames)
+    -> u8[N, *hw]. CPU tensors take ``plain(prep, consts)``; CUDA tensors
+    launch kernel ``name`` or raise. ``consts`` are the kernel's python
+    float constants (lumas, geometry)."""
+    if prep.dim() != 3 or prep.shape[1] not in (1, 2) \
+            or prep.shape[2] != prep_len:
+        raise ValueError(f"{name}: prep must be [N, 1|2, {prep_len}], got "
+                         f"{tuple(prep.shape)}")
+    if prep.dtype != F32:
+        raise TypeError(f"{name}: prep must be float32, got {prep.dtype}")
+    if prep.device.type == "cpu":
+        return plain(prep, consts)
+    if prep.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {prep.device}")
+    if not prep.is_contiguous():
+        raise ValueError(f"{name}: prep must be contiguous")
+    fused = prep.shape[1] == 2
+    n = prep.shape[0]
+    out = torch.empty((n,) + tuple(hw), dtype=U8, device=prep.device)
+    fn = load_library(name)
+    host = (ctypes.c_float * len(consts))(*consts)
+    stream = torch.cuda.current_stream(prep.device).cuda_stream
+    rc = fn(prep.data_ptr(), out.data_ptr(), n, int(fused), host,
+            len(consts), prep.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name + ("_fused" if fused else "")] += 1
+    return out
 
 
 def render_frames(prep: torch.Tensor, lumas) -> torch.Tensor:
-    """prep f32[N, F, PREP] (F = 1 one frame, F = 2 max of two frames)
-    -> u8[N, H, W]. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
-    if prep.dim() != 3 or prep.shape[1] not in (1, 2) \
-            or prep.shape[2] != PREP:
-        raise ValueError(f"prep must be [N, 1|2, {PREP}], got "
-                         f"{tuple(prep.shape)}")
-    if prep.dtype != F32:
-        raise TypeError(f"prep must be float32, got {prep.dtype}")
-    if prep.device.type == "cpu":
-        return frame_plain(prep, lumas)
-    if prep.device.type != "cuda":
-        raise ValueError(f"unsupported device {prep.device}")
-    if not prep.is_contiguous():
-        raise ValueError("prep must be contiguous")
-    fused = prep.shape[1] == 2
-    n = prep.shape[0]
-    out = torch.empty((n, H, W), dtype=U8, device=prep.device)
-    lib = load_library()
-    stream = torch.cuda.current_stream(prep.device).cuda_stream
-    rc = lib.breakout_frame(prep.data_ptr(), out.data_ptr(), n, int(fused),
-                            *lumas, prep.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"breakout_frame launch failed: CUDA error {rc}")
-    LAUNCHES["breakout_frame_fused" if fused else "breakout_frame"] += 1
-    return out
+    """Breakout: prep f32[N, F, PREP] -> u8[N, H, W]."""
+    return run_frame_kernel("breakout_frame", prep, PREP, (H, W), lumas,
+                            frame_plain)
 
 
 def make_breakout_gray_renderer(config: bk.Config):

@@ -3,35 +3,59 @@
 
     python3 chip_smoke.py
 
-It drives the regress (serving) path of each ported game (Breakout, Space
-Invaders, Amidar) with the game's committed PPO model and frame kernel.
+It drives the two paths of the port through the entry points a user
+calls: the regress (serving) path of each ported game (Breakout, Space
+Invaders, Amidar) with the game's committed PPO model, and PPO training
+(``rl.ppo.learn``) over the pipeline's in-kernel warp, at the Breakout
+recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs).
 Phases, each printing one line per game with its own wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every frame kernel (csrc/*.cu) with nvcc, all at once;
-  3. each kernel against its plain PyTorch version on the card, single
-     and fused frames, at N = 10 (the serve), 256 and 1024 envs: exactly
-     equal; kernel, plain and bound times at N = 1024;
+  2. build every frame kernel (csrc/*.cu) with nvcc, all at once, and
+     load both entry points of each (frames, warped fused frames);
+  3. each kernel against its plain PyTorch version on the card, single,
+     fused and warped fused frames, at N = 10 (the serve), 256 and 1024
+     envs: exactly equal; kernel, plain and bound times at N = 1024, and
+     for the warp form the time of the path it replaces (fused kernel,
+     then the two-matmul warp);
   4. the batched engine stepped on cuda and on cpu from the same seeds
      and actions: every state tensor bit-equal; the pipeline and the
      policy on cuda and on cpu: rewards equal, observations within 1 grey
-     level, logits and values within 1e-4;
-  5. serve (the main path): the committed PPO model through the regress
+     level, logits and values within 1e-4; the pipeline with
+     inkernel_warp=True against False on the card: rewards, done and
+     lives equal, observations within 1 grey level;
+  5. serve (a main path): the committed PPO model through the regress
      entry point, 10 games for at most SERVE_STEPS agent steps, with the
      launch counts set to 0 just before and read just after; the game's
      frame kernels must have launched and the games must score;
   6. throughput: 1024 envs x 100 pipeline steps with the policy;
   7. a short torch.profiler window at 10 and 1024 envs: device kernels
-     and device busy time per agent step.
+     and device busy time per agent step;
+  8. train (the slice's main path): ``learn`` on make_rl_env(game, 1024,
+     inkernel_warp=True), 3 updates at the Breakout recipe and one shorter
+     update (nsteps TRAIN_SHORT_STEPS) for Space Invaders and Amidar, with
+     the launch counts set to 0 just before each and read just after:
+     Breakout's warp kernel launches 3 x 128 times; metrics finite;
+     seconds per update and frames/s; then one more Breakout update,
+     train_step's collect and optimize halves timed apart, profiled;
+  9. one PPO update on cuda against cpu from the same params, batch and
+     permutations: params within UPDATE_ATOL;
+ 10. the identity learning test on the card (mlp, 16 envs, 60 updates):
+     mean reward > 0.8;
+ 11. the CLI: ``toybox_tpu_torch.run.main`` trains 2 updates at 64 envs
+     and saves the policy, which reads back through the port's reader.
 
 Then a JSON line of the kernels, the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
-Convolutions and matmuls run in full f32 (TF32 off).
+Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
+CLI's log and model) go under build/chip_smoke/ in the checkout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -46,15 +70,27 @@ from toybox_tpu_torch.envs.pipeline import make_rl_env
 from toybox_tpu_torch.games import amidar as am
 from toybox_tpu_torch.games import breakout as bk
 from toybox_tpu_torch.games import space_invaders as si
-from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
+from toybox_tpu_torch import run
+from toybox_tpu_torch.ops import obs, render_amidar, render_cuda, render_si
 from toybox_tpu_torch.regress import full_f32, play_games
+from toybox_tpu_torch.rl import ppo
 from toybox_tpu_torch.rl.checkpoint import load_state_dict
-from toybox_tpu_torch.rl.policies import build_eval_policy
+from toybox_tpu_torch.rl.policies import build_eval_policy, build_policy
+from toybox_tpu_torch.rl.test_envs import make_discrete_identity_env
 
-MODELS = Path(__file__).resolve().parent / "models"
+ROOT = Path(__file__).resolve().parent
+MODELS = ROOT / "models"
+SCRATCH = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
-SERVE_GAMES, SERVE_STEPS = 10, 500
+SERVE_GAMES, SERVE_STEPS = 10, 300
+TRAIN_ENVS, TRAIN_UPDATES, TRAIN_SHORT_STEPS = 1024, 3, 32
+RECIPE = dict(network="cnn", nsteps=128, nminibatches=4, noptepochs=4,
+              lr=2.5e-4, cliprange=0.1, gamma=0.99, lam=0.95,
+              ent_coef=0.01)                 # run.ALG_DEFAULTS["ppo"]
+UPDATE_ENVS, UPDATE_STEPS, UPDATE_ATOL = 8, 8, 1e-5
+CLI_ENVS = 64
+WARP = 84
 THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 100
 ENGINE_ENVS, ENGINE_STEPS = 256, 200
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
@@ -174,6 +210,7 @@ class Game:
     model: str
     kernel: str                  # csrc/<kernel>.cu
     replaces: tuple              # render_pallas.py lines: single, fused
+                                 # (the warp form is the fused renderer's)
     ops: object                  # module with render_frames, frame_plain
     prep: object                 # (config, state) -> f32[N, P]
     consts: object               # config -> kernel constants
@@ -193,20 +230,33 @@ GAMES = (
 )
 
 
+def _bound(n_bytes: float, n_ops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def kernel_phase(g: Game):
-    """Exact comparison at the main path's shapes; times at N = 1024."""
+    """Exact comparison at the main paths' shapes; times at N = 1024."""
     cfg = g.module.default_config(DEV)
     consts = g.consts(cfg)
+    h, w = g.module.HEIGHT, g.module.WIDTH
+    tables = obs.warp_tables(h, w, WARP, DEV)
     s1, s2 = g.states(cfg, THROUGHPUT_ENVS, 1)
-    names = (g.kernel, g.kernel + "_fused")
+    names = (g.kernel, g.kernel + "_fused", g.kernel + "_fused_warp")
     err = {k: 0 for k in names}
     preps = {}
     for n in KERNEL_ENVS:
         p1 = g.prep(cfg, _rows(g.module, s1, n))
         p2 = g.prep(cfg, _rows(g.module, s2, n))
-        for name, prep in zip(names, (p1[:, None], torch.stack([p1, p2], 1))):
-            got = g.ops.render_frames(prep, consts)
-            want = g.ops.frame_plain(prep, consts)
+        pair = torch.stack([p1, p2], 1)
+        for name, prep, tab in zip(names, (p1[:, None], pair, pair),
+                                   (None, None, tables)):
+            got = g.ops.render_frames(prep, consts, tab)
+            want = (g.ops.frame_plain(prep, consts) if tab is None
+                    else g.ops.frame_warp_plain(prep, consts, tab))
             torch.cuda.synchronize()
             diff = int((got.int() - want.int()).abs().max())
             check(diff == 0, f"{name} differs from its plain version by "
@@ -214,20 +264,31 @@ def kernel_phase(g: Game):
             err[name] = max(err[name], diff)
             preps[name] = prep
     timing = {}
-    h, w = g.module.HEIGHT, g.module.WIDTH
     for name, prep in preps.items():
-        frames = prep.shape[1]
-        n_bytes = prep.numel() * 4 + prep.shape[0] * h * w
+        n, frames = prep.shape[0], prep.shape[1]
         # one select per pixel and frame, one max per pixel for two frames
-        n_ops = prep.shape[0] * h * w * (2 * frames - 1)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / F32_OPS_PER_S * 1e3
+        n_ops = n * h * w * (2 * frames - 1)
+        tab = tables if name.endswith("_warp") else None
+        if tab is None:
+            n_bytes = prep.numel() * 4 + n * h * w
+            plain = lambda: g.ops.frame_plain(prep, consts)  # noqa: E731
+        else:
+            # the banded sums: one multiply and one add per tap
+            taps = tab.taps[:, :, 1].sum(1).tolist()
+            n_ops += n * 2 * (taps[0] * w + taps[1] * WARP)
+            n_bytes = prep.numel() * 4 + n * WARP * WARP
+            plain = lambda: g.ops.frame_warp_plain(  # noqa: E731
+                prep, consts, tab)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
         timing[name] = dict(
-            ms=cuda_ms(lambda: g.ops.render_frames(prep, consts)),
-            plain_ms=cuda_ms(lambda: g.ops.frame_plain(prep, consts)),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            n=prep.shape[0])
+            ms=cuda_ms(lambda: g.ops.render_frames(prep, consts, tab)),
+            plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+            n=n)
+    # the path the warp form replaces: the fused kernel, then two matmuls
+    warp = obs.make_warp(h, w, WARP, DEV)
+    pair = preps[names[1]]
+    timing[names[2]]["replaced_ms"] = cuda_ms(
+        lambda: warp(g.ops.render_frames(pair, consts)))
     return err, timing
 
 
@@ -436,6 +497,256 @@ def profile_phase(g: Game, state_dict, n: int, steps: int) -> str:
             f"unprofiled step), frame kernel {frame / steps:.1f} us/step")
 
 
+def warp_pipeline_phase(g: Game) -> str:
+    """The pipeline with inkernel_warp=True against False on the card, on
+    the same seeds and actions: reward, done and lives exact, observations
+    within 1 grey level (the banded sums and the matmuls sum in other
+    orders)."""
+    n = PIPELINE_ENVS
+    envs = {w: make_rl_env(g.name, n, inkernel_warp=w, device=DEV)
+            for w in (True, False)}
+    states = {w: e.reset(torch.arange(n, device=DEV))[0]
+              for w, e in envs.items()}
+    n_act = envs[True].num_actions
+    r = np.random.default_rng(6)
+    worst, differ = 0, 0
+    for i in range(PIPELINE_STEPS):
+        a = r.integers(0, n_act, size=n)
+        a[r.random(n) < 0.4] = 1
+        out = {}
+        for w, env in envs.items():
+            states[w], o, rew, done, info = env.step(
+                states[w], torch.as_tensor(a, device=DEV))
+            out[w] = (o, rew, done, info["lives"])
+        for k in (1, 2, 3):
+            check(torch.equal(out[True][k], out[False][k]),
+                  f"{g.name} inkernel_warp changes reward/done/lives at "
+                  f"step {i}")
+        diff = (out[True][0].int() - out[False][0].int()).abs()
+        worst = max(worst, int(diff.max()))
+        differ += int((diff > 0).sum())
+    check(worst <= 1, f"{g.name} inkernel_warp obs differ by {worst}")
+    total = n * PIPELINE_STEPS * WARP * WARP * 4
+    return (f"{g.name} inkernel_warp=True vs False, {n} envs x "
+            f"{PIPELINE_STEPS} steps: reward/done/lives equal, obs max diff "
+            f"{worst}, {differ} of {total} obs pixels differ")
+
+
+class _Rows:
+    """A logger for ``learn``: one dict per update, stamped with the host
+    clock when the update's metrics were read (learn reads them as
+    floats, which waits for the device)."""
+
+    def __init__(self):
+        self.rows, self.row = [], {}
+
+    def logkv(self, key, value):
+        self.row[key] = value
+
+    def dumpkvs(self):
+        self.row["wall"] = time.perf_counter()
+        self.rows.append(self.row)
+        self.row = {}
+
+
+def _reset_launches() -> None:
+    for k in render_cuda.LAUNCHES:
+        render_cuda.LAUNCHES[k] = 0
+
+
+def train_phase(g: Game, nsteps: int, updates: int):
+    """A main path: ``learn`` on make_rl_env(game, TRAIN_ENVS,
+    inkernel_warp=True) with the ppo defaults, the launch counts set to 0
+    just before and read just after. Returns (launches, detail, seconds
+    per update)."""
+    env = make_rl_env(g.name, TRAIN_ENVS, inkernel_warp=True, device=DEV)
+    log = _Rows()
+    nbatch = TRAIN_ENVS * nsteps
+    _reset_launches()
+    t0 = time.perf_counter()
+    state = ppo.learn(env=env, total_timesteps=updates * nbatch * 4,
+                      seed=0, logger=log, device=DEV,
+                      **dict(RECIPE, nsteps=nsteps))
+    torch.cuda.synchronize()
+    launches = dict(render_cuda.LAUNCHES)
+    warp = g.kernel + "_fused_warp"
+    check(launches[warp] == updates * nsteps,
+          f"{warp} launched {launches[warp]} times in {updates} updates of "
+          f"{nsteps} steps: {launches}")
+    check(launches[g.kernel + "_fused"] == 0,
+          f"the unwarped fused kernel ran on the warp path: {launches}")
+    check(state.update == updates and len(log.rows) == updates,
+          f"{g.name} trained {state.update} updates")
+    for row in log.rows:
+        for k in ppo.METRICS + ("mean_reward",):
+            key = f"loss/{k}" if k in ppo.METRICS else k
+            check(math.isfinite(row[key]), f"{g.name} {key} = {row[key]}")
+    walls = [t0] + [row["wall"] for row in log.rows]
+    secs = [b - a for a, b in zip(walls, walls[1:])]
+    steady = secs[1:] if len(secs) > 1 else secs
+    per_update = sum(steady) / len(steady)
+    last = log.rows[-1]
+    detail = (f"{g.name} {TRAIN_ENVS} envs x nsteps {nsteps}, {updates} "
+              f"updates: s/update " + ", ".join(f"{x:.2f}" for x in secs)
+              + f" (steady {per_update:.2f} s: "
+              f"{nbatch * 4 / per_update:.0f} frames/s, "
+              f"{nbatch / per_update:.0f} agent-steps/s); last update "
+              + ", ".join(f"{k} {last[k]:.4g}" for k in (
+                  "loss/policy_loss", "loss/value_loss",
+                  "loss/policy_entropy", "loss/approxkl", "loss/clipfrac",
+                  "mean_reward", "eprewmean", "episodes"))
+              + f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"launches {launches}")
+    del state, env
+    return launches, detail, per_update
+
+
+def train_profile_phase() -> str:
+    """One more Breakout update at the recipe through make_ppo's
+    train_step, its two halves timed apart on the host clock, each to a
+    sync: ``collect`` (the rollout and GAE) and ``optimize`` (the
+    minibatch epochs). Then torch.profiler over the collect half of an
+    8-step train_step and over the optimize half at the recipe (again on
+    the same batch): device busy share and the largest device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    env = make_rl_env("breakout", TRAIN_ENVS, inkernel_warp=True, device=DEV)
+
+    def trainer(nsteps):
+        init_fn, train_step, _ = ppo.make_ppo(
+            env, device=DEV, **dict(RECIPE, nsteps=nsteps))
+        return init_fn(0), train_step
+
+    state, train_step = trainer(RECIPE["nsteps"])
+    t0 = time.perf_counter()
+    collected = train_step.collect(state)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    train_step.optimize(state, collected)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+
+    def busy(fn, label):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e6
+        ks = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ks:
+            return f"{label}: device time not measured (no CUDA records)"
+        total = sum(e.time_range.elapsed_us() for e in ks)
+        by = {}
+        for e in ks:
+            by[e.name] = by.get(e.name, 0) + e.time_range.elapsed_us()
+        top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+        return (f"{label}: {len(ks)} device kernels, device busy {total:.0f}"
+                f" us of {wall:.0f} us profiled ({100 * total / wall:.1f}%); "
+                "largest " + ", ".join(f"{k[:48]} {v:.0f} us"
+                                       for k, v in top))
+
+    short, short_step = trainer(8)
+    detail = (f"breakout {TRAIN_ENVS} envs, one train_step split: collect "
+              f"({RECIPE['nsteps']} rollout steps + GAE) {t1 - t0:.2f} s, "
+              f"optimize ({RECIPE['noptepochs']} epochs x "
+              f"{RECIPE['nminibatches']} minibatches) {t2 - t1:.2f} s; "
+              + busy(lambda: short_step.collect(short),
+                     "collect of 8 rollout steps") + "; "
+              + busy(lambda: train_step.optimize(state, collected),
+                     f"optimize, {RECIPE['noptepochs']} epochs"))
+    del collected, state, short, env
+    return detail
+
+
+def update_phase() -> str:
+    """One PPO update on cuda and on cpu from the same params, batch and
+    permutations: a make_ppo on the cpu collects the batch (its
+    train_step's collect half), then ``ppo.update`` runs on each device.
+    The params after it agree within UPDATE_ATOL (cuDNN and the CPU sum
+    the convolutions' gradients in other orders)."""
+    n, nsteps = UPDATE_ENVS, UPDATE_STEPS
+    env = make_rl_env("breakout", n, device="cpu")
+    init_fn, train_step, _ = ppo.make_ppo(env, nsteps=nsteps, device="cpu")
+    state = init_fn(0)
+    before = {k: v.clone() for k, v in state.module.state_dict().items()}
+    batch, _ = train_step.collect(state)
+    module, p_init, _, _ = build_policy(env.obs_shape, env.num_actions,
+                                        "cnn", device=DEV)
+    p_init(0)
+    for k, v in module.state_dict().items():
+        check(torch.equal(v.cpu(), before[k]), f"init differs: {k}")
+    mods = {DEV: module, "cpu": state.module}
+    perms = [torch.randperm(n * nsteps, generator=state.generator)
+             for _ in range(4)]
+    hp = ppo.Hyper(nminibatches=4)
+    lrnow, cliprnow = ppo.anneal(0, 1, 2.5e-4, 0.1)
+    metrics = {}
+    for d, module in mods.items():
+        metrics[d] = ppo.update(
+            module, ppo.AdamState.zeros_like(list(module.parameters())),
+            tuple(x.to(d) for x in batch), [p.to(d) for p in perms],
+            lrnow, cliprnow, hp, env.num_actions)
+    after = {d: {k: v.cpu() for k, v in m.state_dict().items()}
+             for d, m in mods.items()}
+    moved = max(float((after["cpu"][k] - before[k]).abs().max())
+                for k in before)
+    diff = max(float((after[DEV][k] - after["cpu"][k]).abs().max())
+               for k in before)
+    check(moved > 1e-4, f"the update moved the params by only {moved}")
+    check(diff <= UPDATE_ATOL, f"cuda and cpu updates differ by {diff}")
+    mdiff = max(abs(float(metrics[DEV][k]) - float(metrics["cpu"][k]))
+                for k in ppo.METRICS)
+    return (f"breakout {n} envs x nsteps {nsteps}, 4 epochs x 4 "
+            f"minibatches: params moved up to {moved:.3g}, cuda vs cpu max "
+            f"diff {diff:.3g} (tolerance {UPDATE_ATOL:g}); metrics max diff "
+            f"{mdiff:.3g}")
+
+
+def identity_phase() -> str:
+    """tests/test_rl_learning.py's identity learning test on the card."""
+    env = make_discrete_identity_env(16, dim=4, device=DEV)
+    init_fn, train_step, _ = ppo.make_ppo(
+        env, network="mlp", nsteps=16, nminibatches=2, noptepochs=2,
+        lr=1e-2, cliprange=0.2, total_updates=60,
+        network_kwargs=dict(num_hidden=32), device=DEV)
+    state = init_fn(0)
+    for _ in range(60):
+        state, metrics = train_step(state)
+    r = float(metrics["mean_reward"])
+    check(r > 0.8, f"ppo failed to learn the identity task: {r}")
+    return f"mlp, 16 envs, 60 updates: mean reward {r:.3f} (> 0.8)"
+
+
+def cli_phase() -> str:
+    """``python -m toybox_tpu_torch.run --alg=ppo`` at CLI_ENVS envs for 2
+    updates, saving the policy; the file reads back through the port's
+    reader with the trained params."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    SCRATCH.mkdir(parents=True)
+    path = SCRATCH / "breakout.model"
+    n = CLI_ENVS
+    steps = 2 * n * run.ALG_DEFAULTS["ppo"]["nsteps"] * 4
+    state = run.main(["--alg=ppo", "--env=BreakoutToyboxNoFrameskip-v4",
+                      f"--num_envs={n}", f"--num_timesteps={steps}",
+                      f"--save_path={path}", f"--log_path={SCRATCH / 'log'}",
+                      f"--device={DEV}"])
+    check(state.update == 2, f"the CLI trained {state.update} updates")
+    module = build_policy((84, 84, 4), state.module.pi.out_features, "cnn",
+                          device="cpu")[0]
+    ppo.load_params(path, module)
+    for k, v in state.module.state_dict().items():
+        check(torch.equal(module.state_dict()[k], v.cpu()),
+              f"the saved policy differs in {k}")
+    rows = (SCRATCH / "log" / "progress.csv").read_text().splitlines()
+    check(len(rows) == 3, f"progress.csv has {len(rows)} lines")
+    return (f"run.main --alg=ppo --num_envs={n} --num_timesteps={steps}: "
+            f"{state.update} updates, {path.stat().st_size} B saved and read "
+            f"back equal; progress.csv {len(rows) - 1} rows")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -461,6 +772,7 @@ def main() -> int:
           f"kernels missing from the build: {sorted(built)}")
     for g in GAMES:
         render_cuda.load_library(g.kernel)
+        render_cuda.load_library(g.kernel, warp=True)
     phase(2, "build", t0, "; ".join(
         f"{path.name} [" + (" | ".join(
             line.strip() for line in log.splitlines()
@@ -478,14 +790,18 @@ def main() -> int:
             map(str, KERNEL_ENVS)) + "; " + "; ".join(
                   f"{k} N={v['n']}: kernel {v['ms']:.4f} ms, plain "
                   f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-                  f"({v['bound_by']})" for k, v in t.items()))
+                  f"({v['bound_by']})" + (
+                      f", replaced path (fused kernel + matmul warp) "
+                      f"{v['replaced_ms']:.4f} ms" if "replaced_ms" in v
+                      else "") for k, v in t.items()))
 
     # 4. engine, pipeline and policy: cuda against cpu
     state_dicts = {g.name: load_state_dict(MODELS / g.model) for g in GAMES}
     for g in GAMES:
         t0 = time.perf_counter()
         phase(4, "engine", t0, engine_phase(g) + "; "
-              + pipeline_phase(g, state_dicts[g.name]))
+              + pipeline_phase(g, state_dicts[g.name]) + "; "
+              + warp_pipeline_phase(g))
 
     # 5. serve: the main path of each game
     launches = {}
@@ -508,9 +824,33 @@ def main() -> int:
             profile_phase(g, state_dicts[g.name], n, PROFILE_STEPS)
             for n in (SERVE_GAMES, THROUGHPUT_ENVS)))
 
+    # 8. train: the slice's main path, Breakout at the recipe, and a
+    # shorter update for the other two games (their warp kernels' path)
+    for g in GAMES:
+        t0 = time.perf_counter()
+        full = g.name == "breakout"
+        mine, detail, _ = train_phase(
+            g, RECIPE["nsteps"] if full else TRAIN_SHORT_STEPS,
+            TRAIN_UPDATES if full else 1)
+        warp = g.kernel + "_fused_warp"
+        launches[warp] = mine[warp]
+        phase(8, "train", t0, detail)
+    t0 = time.perf_counter()
+    phase(8, "train profile", t0, train_profile_phase())
+
+    # 9-11. the update on cuda against cpu, learning, the CLI
+    t0 = time.perf_counter()
+    phase(9, "update", t0, update_phase())
+    t0 = time.perf_counter()
+    phase(10, "identity", t0, identity_phase())
+    t0 = time.perf_counter()
+    phase(11, "cli", t0, cli_phase())
+
     kernels = []
     for g in GAMES:
-        for name, line in zip((g.kernel, g.kernel + "_fused"), g.replaces):
+        for name, line in zip((g.kernel, g.kernel + "_fused",
+                               g.kernel + "_fused_warp"),
+                              g.replaces + g.replaces[1:]):
             t = timing[name]
             kernels.append(dict(
                 name=name, route="cuda",

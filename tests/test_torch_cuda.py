@@ -10,7 +10,7 @@ from toybox_tpu_torch.core.actions import ale_to_input
 from toybox_tpu_torch.games import amidar as am
 from toybox_tpu_torch.games import breakout as bk
 from toybox_tpu_torch.games import space_invaders as si
-from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
+from toybox_tpu_torch.ops import obs, render_amidar, render_cuda, render_si
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +95,37 @@ def test_other_kernels_equal_plain_versions(cuda_config, game, fused):
     torch.cuda.synchronize()
     assert render_cuda.LAUNCHES[key] == before + 1
     assert torch.equal(got, ops.frame_plain(prep, consts))
+
+
+@pytest.mark.parametrize("game", ["breakout", "space_invaders", "amidar"])
+def test_warp_kernels_equal_plain_versions(cuda_config, game):
+    """Each fused frame kernel's warp form (``<kernel>_fused_warp``) is
+    exactly its plain version: both sum each band in the same order."""
+    if game == "breakout":
+        s1 = _states(cuda_config)
+        s2 = bk.step(cuda_config, s1, ale_to_input(torch.ones(
+            64, dtype=torch.long, device="cuda")))
+        preps = [render_cuda.breakout_prep(s) for s in (s1, s2)]
+        ops, consts = render_cuda, render_cuda.breakout_lumas(cuda_config)
+        key, hw = "breakout_frame", (bk.HEIGHT, bk.WIDTH)
+    elif game == "space_invaders":
+        cfg = si.default_config("cuda")
+        s1, s2 = _play(si, cfg, steps=300)
+        preps = [render_si.si_prep(s) for s in (s1, s2)]
+        ops, consts, key = render_si, render_si.si_consts(cfg), "si_frame"
+        hw = (si.HEIGHT, si.WIDTH)
+    else:
+        cfg = am.default_config("cuda")
+        s1, s2 = _play(am, cfg)
+        preps = [render_amidar.amidar_prep(cfg, s) for s in (s1, s2)]
+        ops, consts = render_amidar, render_amidar.amidar_consts(cfg)
+        key, hw = "amidar_frame", (am.HEIGHT, am.WIDTH)
+    tables = obs.warp_tables(*hw, 84, "cuda")
+    prep = torch.stack(preps, 1)
+    key += "_fused_warp"
+    before = render_cuda.LAUNCHES[key]
+    got = ops.render_frames(prep, consts, tables)
+    torch.cuda.synchronize()
+    assert render_cuda.LAUNCHES[key] == before + 1
+    assert tuple(got.shape) == (64, 84, 84)
+    assert torch.equal(got, ops.frame_warp_plain(prep, consts, tables))

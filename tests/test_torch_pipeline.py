@@ -12,6 +12,16 @@ from toybox_tpu.envs.pipeline import make_rl_env as j_make_rl_env
 from toybox_tpu_torch.envs.pipeline import make_rl_env as t_make_rl_env
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The torch ops here are small: one intra-op thread does them as fast
+    and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("episodic_life,clip", [(True, True), (False, False)])
 def test_pipeline_matches_jax(episodic_life, clip):
     n, steps = 4, 40
@@ -77,3 +87,48 @@ def test_pipeline_matches_jax_other_games(game, steps):
         assert diff.max() <= 1, f"step {i}: obs differ by {diff.max()}"
         total += float(np.asarray(ji["raw_reward"]).sum())
     assert total > 0
+
+
+@pytest.mark.parametrize("game,steps", [("breakout", 30),
+                                        ("space_invaders", 30),
+                                        ("amidar", 30)])
+def test_inkernel_warp_matches_out_of_kernel_and_pallas(game, steps):
+    """``inkernel_warp=True`` (the fused kernel's warp form, its plain
+    version here) against the port's matmul warp and against the JAX
+    pipeline with the Pallas kernels in interpret mode and their in-kernel
+    warp: rewards, done and lives equal, observations within 1 grey
+    level."""
+    n = 2
+    r = np.random.default_rng(13)
+    seeds = np.arange(n, dtype=np.uint32) + 7
+    jenv = j_make_rl_env(game, n, use_pallas=True, inkernel_warp=True)
+    envs = {w: t_make_rl_env(game, n, inkernel_warp=w, device="cpu")
+            for w in (True, False)}
+    acts = r.integers(0, envs[True].num_actions, size=(steps, n))
+    acts[::5] = 1
+    jst, jo = jax.jit(jenv.reset)(jnp.asarray(seeds))
+    tst = {w: e.reset(torch.as_tensor(seeds.astype(np.int64)))[0]
+           for w, e in envs.items()}
+    jstep = jax.jit(jenv.step)
+    worst = {"jax": 0, "matmul": 0}
+    differ = {"jax": 0, "matmul": 0}
+    for i in range(steps):
+        jst, jo, jr, jd, ji = jstep(jst, jnp.asarray(acts[i]))
+        out = {}
+        for w, e in envs.items():
+            tst[w], o, rew, d, info = e.step(tst[w], torch.as_tensor(acts[i]))
+            out[w] = (o.numpy().astype(int), rew.numpy(), d.numpy(),
+                      info["lives"].numpy())
+        for w in (True, False):
+            np.testing.assert_array_equal(out[w][1], np.asarray(jr))
+            np.testing.assert_array_equal(out[w][2], np.asarray(jd))
+            np.testing.assert_array_equal(out[w][3], np.asarray(ji["lives"]))
+        for name, ref in (("jax", np.asarray(jo).astype(int)),
+                          ("matmul", out[False][0])):
+            diff = np.abs(out[True][0] - ref)
+            worst[name] = max(worst[name], int(diff.max()))
+            differ[name] += int((diff > 0).sum())
+    print(f"{game}: in-kernel warp vs JAX Pallas max {worst['jax']} "
+          f"({differ['jax']} obs pixels), vs matmul warp max "
+          f"{worst['matmul']} ({differ['matmul']} obs pixels)")
+    assert worst["jax"] <= 1 and worst["matmul"] <= 1

@@ -32,6 +32,11 @@
 // values before the truncation (uint8)(int)v, which is exact since
 // truncation is monotone.
 //
+// The `amidar_frame_warp` entry point composes the fused frame and warps
+// it to 84 x 84 in the same launch (the `warp_to=84` form of
+// `make_amidar_gray_maxpool_renderer`; the warp is in warp84.cuh). It
+// takes a whole env per block, not a band: the warp needs every row.
+//
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 40000 B = 41.0 MB of frames and reads 1024 * 2 * 1024 * 4 B =
 // 8.4 MB of prep: about 15 us at 3.35 TB/s. It does a few dozen compares
@@ -40,6 +45,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp84.cuh"
 
 namespace {
 
@@ -109,6 +116,35 @@ amidar_frame_kernel(const float* __restrict__ prep,
   }
 }
 
+__global__ void __launch_bounds__(warp84::kThreads)
+amidar_frame_warp_kernel(const float* __restrict__ prep,
+                         uint8_t* __restrict__ out, Consts c,
+                         warp84::Args a) {
+  __shared__ float sp[2 * kPrep];
+  const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
+  for (int i = threadIdx.x; i < 2 * kPrep; i += blockDim.x) {
+    sp[i] = src[i];
+  }
+  __syncthreads();
+  const float* p0 = sp;
+  const float* p1 = sp + kPrep;
+  warp84::compose_and_warp<kH, kW>(
+      [=](int y, int x) {
+        return fmaxf(pixel_luma(p0, y, x, c), pixel_luma(p1, y, x, c));
+      },
+      a, out + static_cast<size_t>(blockIdx.x) * a.size * a.size);
+}
+
+// The host constants (see amidar_frame below) -> Consts; false if
+// malformed.
+bool parse_consts(const float* consts, int n_consts, Consts* c) {
+  if (n_consts != kConsts) return false;
+  for (int k = 0; k < 4; ++k) c->tile[k] = consts[k];
+  c->enemy = consts[4];
+  c->player = consts[5];
+  return true;
+}
+
 }  // namespace
 
 // prep: f32[n, fused ? 2 : 1, 1024]; out: u8[n, 250, 160]; both on
@@ -119,17 +155,43 @@ amidar_frame_kernel(const float* __restrict__ prep,
 extern "C" int amidar_frame(const float* prep, uint8_t* out, int n,
                             int fused, const float* consts, int n_consts,
                             int device, void* stream) {
-  if (n_consts != kConsts) return static_cast<int>(cudaErrorInvalidValue);
   Consts c;
-  for (int k = 0; k < 4; ++k) c.tile[k] = consts[k];
-  c.enemy = consts[4];
-  c.player = consts[5];
+  if (!parse_consts(consts, n_consts, &c)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     amidar_frame_kernel<<<dim3(n, kBands), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(prep, out,
                                                                fused, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused frame warped in the same launch. prep: f32[n, 2, 1024]; out:
+// u8[n, size, size]; wy f32[size, 250], wx f32[size, 160] and taps
+// i32[2, size, 2] (see warp84.cuh), all on `device`. consts as above.
+// Launches on `stream` and returns the first CUDA error (0 on success).
+extern "C" int amidar_frame_warp(const float* prep, uint8_t* out, int n,
+                                 const float* consts, int n_consts,
+                                 const float* wy, const float* wx,
+                                 const int* taps, int size, int device,
+                                 void* stream) {
+  Consts c;
+  if (!parse_consts(consts, n_consts, &c) || size <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = warp84::smem_bytes(kH, kW, size);
+  err = warp84::allow_smem(
+      reinterpret_cast<const void*>(amidar_frame_warp_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    amidar_frame_warp_kernel<<<n, warp84::kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+        prep, out, c, warp84::Args{wy, wx, taps, size});
   }
   return static_cast<int>(cudaGetLastError());
 }

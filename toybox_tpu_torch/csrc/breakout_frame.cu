@@ -24,6 +24,10 @@
 // The fused form takes the max of two such values before the truncation
 // (uint8)(int)v, which is exact since truncation is monotone.
 //
+// The `breakout_frame_warp` entry point composes the fused frame and warps
+// it to 84 x 84 in the same launch (the `warp_to=84` form of
+// `make_breakout_gray_maxpool_renderer`; the warp is in warp84.cuh).
+//
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 38400 B = 39.3 MB of frames and reads 1024 * 2 * 464 * 4 B =
 // 3.8 MB of prep: about 13 us at 3.35 TB/s. It does a handful of compares
@@ -31,6 +35,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp84.cuh"
 
 namespace {
 
@@ -89,6 +95,26 @@ breakout_frame_kernel(const float* __restrict__ prep,
   }
 }
 
+__global__ void __launch_bounds__(warp84::kThreads)
+breakout_frame_warp_kernel(const float* __restrict__ prep,
+                           uint8_t* __restrict__ out, float bg, float wall,
+                           float pad, float ball, warp84::Args a) {
+  __shared__ float sp[2 * kPrep];
+  const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
+  for (int i = threadIdx.x; i < 2 * kPrep; i += blockDim.x) {
+    sp[i] = src[i];
+  }
+  __syncthreads();
+  const float* p0 = sp;
+  const float* p1 = sp + kPrep;
+  warp84::compose_and_warp<kH, kW>(
+      [=](int y, int x) {
+        return fmaxf(pixel_luma(p0, y, x, bg, wall, pad, ball),
+                     pixel_luma(p1, y, x, bg, wall, pad, ball));
+      },
+      a, out + static_cast<size_t>(blockIdx.x) * a.size * a.size);
+}
+
 }  // namespace
 
 // prep: f32[n, fused ? 2 : 1, 464]; out: u8[n, 160, 240]; both on `device`.
@@ -104,6 +130,33 @@ extern "C" int breakout_frame(const float* prep, uint8_t* out, int n,
     breakout_frame_kernel<<<n, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         prep, out, fused, consts[0], consts[1], consts[2], consts[3]);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused frame warped in the same launch. prep: f32[n, 2, 464]; out:
+// u8[n, size, size]; wy f32[size, 160], wx f32[size, 240] and taps
+// i32[2, size, 2] (see warp84.cuh), all on `device`. consts as above.
+// Launches on `stream` and returns the first CUDA error (0 on success).
+extern "C" int breakout_frame_warp(const float* prep, uint8_t* out, int n,
+                                   const float* consts, int n_consts,
+                                   const float* wy, const float* wx,
+                                   const int* taps, int size, int device,
+                                   void* stream) {
+  if (n_consts != 4 || size <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = warp84::smem_bytes(kH, kW, size);
+  err = warp84::allow_smem(
+      reinterpret_cast<const void*>(breakout_frame_warp_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    breakout_frame_warp_kernel<<<n, warp84::kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        prep, out, consts[0], consts[1], consts[2], consts[3],
+        warp84::Args{wy, wx, taps, size});
   }
   return static_cast<int>(cudaGetLastError());
 }

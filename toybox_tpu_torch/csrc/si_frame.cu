@@ -31,6 +31,11 @@
 // max of two such values before the truncation (uint8)(int)v, which is
 // exact since truncation is monotone.
 //
+// The `si_frame_warp` entry point composes the fused frame and warps it to
+// 84 x 84 in the same launch (the `warp_to=84` form of
+// `make_si_gray_maxpool_renderer`; the warp is in warp84.cuh). It takes a
+// whole env per block, not a band: the warp needs every row.
+//
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 67200 B = 68.8 MB of frames and reads 1024 * 2 * 128 * 4 B =
 // 1.0 MB of prep: about 21 us at 3.35 TB/s. It does a few dozen integer
@@ -39,6 +44,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp84.cuh"
 
 namespace {
 
@@ -120,6 +127,42 @@ si_frame_kernel(const float* __restrict__ prep, uint8_t* __restrict__ out,
   }
 }
 
+__global__ void __launch_bounds__(warp84::kThreads)
+si_frame_warp_kernel(const float* __restrict__ prep,
+                     uint8_t* __restrict__ out, Consts c, warp84::Args a) {
+  __shared__ float sp[2 * kPrep];
+  const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
+  for (int i = threadIdx.x; i < 2 * kPrep; i += blockDim.x) {
+    sp[i] = src[i];
+  }
+  __syncthreads();
+  const float* p0 = sp;
+  const float* p1 = sp + kPrep;
+  warp84::compose_and_warp<kH, kW>(
+      [=](int y, int x) {
+        return fmaxf(pixel_luma(p0, y, x, c), pixel_luma(p1, y, x, c));
+      },
+      a, out + static_cast<size_t>(blockIdx.x) * a.size * a.size);
+}
+
+// The host constants (see si_frame below) -> Consts; false if malformed.
+bool parse_consts(const float* consts, int n_consts, Consts* c) {
+  if (n_consts != kConsts) return false;
+  c->bg = consts[0];
+  c->enemy = consts[1];
+  c->shield = consts[2];
+  c->ufo = consts[3];
+  c->ship = consts[4];
+  c->laser = consts[5];
+  c->n_shields = static_cast<int>(consts[6]);
+  c->shield_y = static_cast<int>(consts[7]);
+  if (c->n_shields < 0 || c->n_shields > kMaxShields) return false;
+  for (int s = 0; s < kMaxShields; ++s) {
+    c->shield_x[s] = static_cast<int>(consts[8 + s]);
+  }
+  return true;
+}
+
 }  // namespace
 
 // prep: f32[n, fused ? 2 : 1, 128]; out: u8[n, 210, 320]; both on `device`.
@@ -129,21 +172,9 @@ si_frame_kernel(const float* __restrict__ prep, uint8_t* __restrict__ out,
 extern "C" int si_frame(const float* prep, uint8_t* out, int n, int fused,
                         const float* consts, int n_consts, int device,
                         void* stream) {
-  if (n_consts != kConsts) return static_cast<int>(cudaErrorInvalidValue);
   Consts c;
-  c.bg = consts[0];
-  c.enemy = consts[1];
-  c.shield = consts[2];
-  c.ufo = consts[3];
-  c.ship = consts[4];
-  c.laser = consts[5];
-  c.n_shields = static_cast<int>(consts[6]);
-  c.shield_y = static_cast<int>(consts[7]);
-  if (c.n_shields < 0 || c.n_shields > kMaxShields) {
+  if (!parse_consts(consts, n_consts, &c)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int s = 0; s < kMaxShields; ++s) {
-    c.shield_x[s] = static_cast<int>(consts[8 + s]);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -151,6 +182,33 @@ extern "C" int si_frame(const float* prep, uint8_t* out, int n, int fused,
     si_frame_kernel<<<dim3(n, kBands), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(prep, out, fused,
                                                            c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused frame warped in the same launch. prep: f32[n, 2, 128]; out:
+// u8[n, size, size]; wy f32[size, 210], wx f32[size, 320] and taps
+// i32[2, size, 2] (see warp84.cuh), all on `device`. consts as above.
+// Launches on `stream` and returns the first CUDA error (0 on success).
+extern "C" int si_frame_warp(const float* prep, uint8_t* out, int n,
+                             const float* consts, int n_consts,
+                             const float* wy, const float* wx,
+                             const int* taps, int size, int device,
+                             void* stream) {
+  Consts c;
+  if (!parse_consts(consts, n_consts, &c) || size <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = warp84::smem_bytes(kH, kW, size);
+  err = warp84::allow_smem(reinterpret_cast<const void*>(si_frame_warp_kernel),
+                           smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    si_frame_warp_kernel<<<n, warp84::kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+        prep, out, c, warp84::Args{wy, wx, taps, size});
   }
   return static_cast<int>(cudaGetLastError());
 }

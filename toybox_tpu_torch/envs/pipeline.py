@@ -4,7 +4,9 @@
 - skip-4 stepping, where only the last two of every four frames are
   rendered, by the game's fused max-pool frame kernel (ops/render_cuda.py,
   render_si.py, render_amidar.py);
-- the 84x84 bilinear warp as two f32 matmuls;
+- the 84x84 bilinear warp as two f32 matmuls, or with
+  ``inkernel_warp=True`` inside the fused frame kernel (the reset frame is
+  still warped by the matmuls, as in the JAX package);
 - a 4-frame stack kept channel-first [N, 4, 84, 84], with an NHWC
   ``frames`` view at the public boundary, as in the JAX package;
 - episodic life (the stack restarts on life loss) and sign-clipped reward.
@@ -52,11 +54,14 @@ class PipelineState:
 def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
                 frame_size: int = 84, frame_stack: int = 4,
                 episodic_life: bool = True, clip_rewards: bool = True,
+                inkernel_warp: bool = False,
                 device="cuda") -> BatchedEnvFns:
     """BatchedEnvFns with DeepMind preprocessing:
     step(state, actions) -> (state, obs[N,84,84,k], reward, done, info),
     where done marks life loss under episodic_life (the env auto-resets
-    itself on true game over)."""
+    itself on true game over). ``inkernel_warp`` warps each step's
+    max-pooled frame inside the frame kernel (one launch per step, only
+    [N, 84, 84] written) instead of with two matmuls after it."""
     if skip < 2:
         raise ValueError("make_rl_env requires skip >= 2 (the last two "
                          "frames are always rendered for the max-pool)")
@@ -69,8 +74,14 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
                              fast_auto_reset=True)
     factory, factory2 = _RENDERERS[game_name]
     render_gray = factory(cfg)
-    render_max = factory2(cfg)
     warp = obs_ops.make_warp(module.HEIGHT, module.WIDTH, frame_size, dev)
+    if inkernel_warp:
+        render_max_warp = factory2(cfg, warp_to=frame_size)
+    else:
+        render_max = factory2(cfg)
+
+        def render_max_warp(g1, g2):
+            return warp(render_max(g1, g2))
 
     def restart(frame):
         return frame[:, None].expand(-1, frame_stack, -1, -1)
@@ -104,7 +115,7 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
         env_state, total_r, done_any, info = inner_step(
             env_state, total_r, done_any)
 
-        frame = warp(render_max(g1, env_state.game))       # [N, 84, 84]
+        frame = render_max_warp(g1, env_state.game)        # [N, 84, 84]
         stack = torch.cat([state.stack[:, 1:], frame[:, None]], 1)
 
         lives = info["lives"]

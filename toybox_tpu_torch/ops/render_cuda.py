@@ -5,9 +5,12 @@ Amidar in ``render_amidar.py``).
 
 Each frame kernel composes u8[N, H, W] grey frames from a small f32
 per-env table (the prep), one frame or the max of two (the skip-4
-max-pool). For a CUDA tensor ``run_frame_kernel`` launches the kernel,
-built with ``nvcc`` at first use and loaded with ``ctypes``; for a CPU
-tensor it runs the game's plain PyTorch version of the same arithmetic.
+max-pool), or, through its second entry point ``<name>_warp``, the max of
+two warped to u8[N, S, S] in the same launch (``warp_to``, the warp in
+``csrc/warp84.cuh``). For a CUDA tensor ``run_frame_kernel`` launches the
+kernel, built with ``nvcc`` at first use and loaded with ``ctypes``; for a
+CPU tensor it runs the game's plain PyTorch version of the same
+arithmetic.
 
 ``breakout_prep`` turns Breakout states into their table (brick luma grid
 and sprite intervals, see ``csrc/breakout_frame.cu``).
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +31,7 @@ import torch
 
 from toybox_tpu_torch.games import breakout as bk
 from toybox_tpu_torch.games.common import F32, U8, luma_packed, packed_lumas
+from toybox_tpu_torch.ops import obs
 
 H, W = bk.HEIGHT, bk.WIDTH
 GRID_ROWS, GRID_COLS = bk.MAX_RENDER_ROWS, bk.N_COLS
@@ -42,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Kernel launches, counted by the wrapper (one per launch, nowhere else).
 LAUNCHES = {f"{k}{v}": 0 for k in ("breakout_frame", "si_frame",
-                                   "amidar_frame") for v in ("", "_fused")}
+                                   "amidar_frame")
+            for v in ("", "_fused", "_fused_warp")}
 
 _KERNELS = {}
 
@@ -136,6 +142,12 @@ def frame_plain(prep: torch.Tensor, lumas) -> torch.Tensor:
     return max_of_frames(_frame_plain_one, prep, lumas)
 
 
+def frame_warp_plain(prep: torch.Tensor, lumas,
+                     tables: obs.WarpTables) -> torch.Tensor:
+    """Plain PyTorch version of the Breakout kernel's warp form."""
+    return obs.banded_warp(frame_plain(prep, lumas), tables)
+
+
 # ---------------------------------------------------------------------------
 # Build and launch (every frame kernel)
 # ---------------------------------------------------------------------------
@@ -153,10 +165,30 @@ def _nvcc() -> list:
                        f"the kernels in {CSRC}")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list:
+    """``src`` and every file it includes with quotes, recursively (each
+    once, relative to the including file, in the order first met)."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m for m in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def _library_path(src: Path) -> Path:
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+    """The library of ``src``, keyed by its source, the headers it
+    includes and the flags."""
+    h = hashlib.sha256()
+    for path in _sources(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
@@ -195,57 +227,99 @@ def build() -> dict:
     return built
 
 
-def load_library(name: str):
-    """The C entry point of kernel ``name`` (``csrc/<name>.cu``), building
-    every kernel at first use. All share one signature: (prep, out, n,
-    fused, consts, n_consts, device, stream) -> CUDA error code."""
-    if name not in _KERNELS:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (prep, out, n, fused, consts, n_consts, device, stream)
+_FRAME_ARGS = [_P, _P, _I, _I, _P, _I, _I, _P]
+# (prep, out, n, consts, n_consts, wy, wx, taps, size, device, stream)
+_WARP_ARGS = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P]
+
+
+def load_library(name: str, warp: bool = False):
+    """A C entry point of kernel ``name`` (``csrc/<name>.cu``), building
+    every kernel at first use: ``name`` (frames) or ``name``_warp (warped
+    fused frames). Every library has both, with the signatures of
+    _FRAME_ARGS and _WARP_ARGS; each returns a CUDA error code."""
+    symbol = name + ("_warp" if warp else "")
+    if symbol not in _KERNELS:
         path, _ = build()[name]
-        fn = getattr(ctypes.CDLL(str(path)), name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = _WARP_ARGS if warp else _FRAME_ARGS
         fn.restype = ctypes.c_int
-        _KERNELS[name] = fn
-    return _KERNELS[name]
+        _KERNELS[symbol] = fn
+    return _KERNELS[symbol]
+
+
+def _check_tables(name: str, tables: obs.WarpTables, hw: tuple,
+                  device) -> None:
+    s = tables.size
+    want = {"wy": ((s, hw[0]), F32), "wx": ((s, hw[1]), F32),
+            "taps": ((2, s, 2), torch.int32)}
+    for field, (shape, dtype) in want.items():
+        t = getattr(tables, field)
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: warp table {field} must be a "
+                             f"contiguous {dtype} {shape} on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def run_frame_kernel(name: str, prep: torch.Tensor, prep_len: int,
-                     hw: tuple, consts, plain) -> torch.Tensor:
+                     hw: tuple, consts, plain,
+                     tables: obs.WarpTables | None = None) -> torch.Tensor:
     """prep f32[N, F, prep_len] (F = 1 one frame, F = 2 max of two frames)
-    -> u8[N, *hw]. CPU tensors take ``plain(prep, consts)``; CUDA tensors
-    launch kernel ``name`` or raise. ``consts`` are the kernel's python
-    float constants (lumas, geometry)."""
+    -> u8[N, *hw]; with warp ``tables`` (F = 2 only) the max of two frames
+    warped in the same launch -> u8[N, S, S]. CPU tensors take the plain
+    version, ``plain(prep, consts)`` (then ``obs.banded_warp``); CUDA
+    tensors launch kernel ``name`` (or ``name``_warp) or raise.
+    ``consts`` are the kernel's python float constants (lumas,
+    geometry)."""
     if prep.dim() != 3 or prep.shape[1] not in (1, 2) \
             or prep.shape[2] != prep_len:
         raise ValueError(f"{name}: prep must be [N, 1|2, {prep_len}], got "
                          f"{tuple(prep.shape)}")
     if prep.dtype != F32:
         raise TypeError(f"{name}: prep must be float32, got {prep.dtype}")
+    fused = prep.shape[1] == 2
+    if tables is not None:
+        if not fused:
+            raise ValueError(f"{name}: the warp form takes two frames")
+        _check_tables(name, tables, hw, prep.device)
     if prep.device.type == "cpu":
-        return plain(prep, consts)
+        frames = plain(prep, consts)
+        return frames if tables is None else obs.banded_warp(frames, tables)
     if prep.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {prep.device}")
     if not prep.is_contiguous():
         raise ValueError(f"{name}: prep must be contiguous")
-    fused = prep.shape[1] == 2
     n = prep.shape[0]
-    out = torch.empty((n,) + tuple(hw), dtype=U8, device=prep.device)
-    fn = load_library(name)
     host = (ctypes.c_float * len(consts))(*consts)
     stream = torch.cuda.current_stream(prep.device).cuda_stream
-    rc = fn(prep.data_ptr(), out.data_ptr(), n, int(fused), host,
-            len(consts), prep.device.index, stream)
+    if tables is None:
+        out = torch.empty((n,) + tuple(hw), dtype=U8, device=prep.device)
+        rc = load_library(name)(prep.data_ptr(), out.data_ptr(), n,
+                                int(fused), host, len(consts),
+                                prep.device.index, stream)
+        key = name + ("_fused" if fused else "")
+    else:
+        s = tables.size
+        out = torch.empty((n, s, s), dtype=U8, device=prep.device)
+        rc = load_library(name, warp=True)(
+            prep.data_ptr(), out.data_ptr(), n, host, len(consts),
+            tables.wy.data_ptr(), tables.wx.data_ptr(),
+            tables.taps.data_ptr(), s, prep.device.index, stream)
+        key = name + "_fused_warp"
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name + ("_fused" if fused else "")] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
     return out
 
 
-def render_frames(prep: torch.Tensor, lumas) -> torch.Tensor:
-    """Breakout: prep f32[N, F, PREP] -> u8[N, H, W]."""
+def render_frames(prep: torch.Tensor, lumas,
+                  tables: obs.WarpTables | None = None) -> torch.Tensor:
+    """Breakout: prep f32[N, F, PREP] -> u8[N, H, W], or with warp
+    ``tables`` f32[N, 2, PREP] -> u8[N, S, S]."""
     return run_frame_kernel("breakout_frame", prep, PREP, (H, W), lumas,
-                            frame_plain)
+                            frame_plain, tables)
 
 
 def make_breakout_gray_renderer(config: bk.Config):
@@ -258,13 +332,18 @@ def make_breakout_gray_renderer(config: bk.Config):
     return render
 
 
-def make_breakout_gray_maxpool_renderer(config: bk.Config):
+def make_breakout_gray_maxpool_renderer(config: bk.Config,
+                                        warp_to: int | None = None):
     """fn(states1, states2) -> u8[N, 160, 240], the max of the two frames
-    composed in one kernel launch."""
+    composed in one kernel launch; with ``warp_to=84`` warped in the same
+    launch -> u8[N, 84, 84]."""
     lumas = breakout_lumas(config)
+    tables = (None if warp_to is None
+              else obs.warp_tables(H, W, warp_to, config.device))
 
     def render2(s1: bk.State, s2: bk.State) -> torch.Tensor:
         return render_frames(
-            torch.stack([breakout_prep(s1), breakout_prep(s2)], 1), lumas)
+            torch.stack([breakout_prep(s1), breakout_prep(s2)], 1), lumas,
+            tables)
 
     return render2

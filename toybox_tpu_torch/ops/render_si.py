@@ -16,6 +16,7 @@ import torch
 
 from toybox_tpu_torch.games import space_invaders as si
 from toybox_tpu_torch.games.common import F32, packed_lumas
+from toybox_tpu_torch.ops import obs
 from toybox_tpu_torch.ops.render_cuda import max_of_frames, run_frame_kernel
 
 H, W = si.HEIGHT, si.WIDTH
@@ -118,12 +119,20 @@ def frame_plain(prep: torch.Tensor, consts) -> torch.Tensor:
     return max_of_frames(_frame_plain_one, prep, consts)
 
 
-def render_frames(prep: torch.Tensor, consts) -> torch.Tensor:
+def frame_warp_plain(prep: torch.Tensor, consts,
+                     tables: obs.WarpTables) -> torch.Tensor:
+    """Plain PyTorch version of the Space Invaders kernel's warp form."""
+    return obs.banded_warp(frame_plain(prep, consts), tables)
+
+
+def render_frames(prep: torch.Tensor, consts,
+                  tables: obs.WarpTables | None = None) -> torch.Tensor:
     """prep f32[N, F, PREP] (F = 1 one frame, F = 2 max of two frames) ->
-    u8[N, H, W]. CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    u8[N, H, W], or with warp ``tables`` (F = 2) -> u8[N, S, S]. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     return run_frame_kernel("si_frame", prep, PREP, (H, W), consts,
-                            frame_plain)
+                            frame_plain, tables)
 
 
 def make_si_gray_renderer(config: si.Config):
@@ -136,13 +145,17 @@ def make_si_gray_renderer(config: si.Config):
     return render
 
 
-def make_si_gray_maxpool_renderer(config: si.Config):
+def make_si_gray_maxpool_renderer(config: si.Config,
+                                  warp_to: int | None = None):
     """fn(states1, states2) -> u8[N, 210, 320], the max of the two frames
-    composed in one kernel launch."""
+    composed in one kernel launch; with ``warp_to=84`` warped in the same
+    launch -> u8[N, 84, 84]."""
     consts = si_consts(config)
+    tables = (None if warp_to is None
+              else obs.warp_tables(H, W, warp_to, config.device))
 
     def render2(s1: si.State, s2: si.State) -> torch.Tensor:
         return render_frames(torch.stack([si_prep(s1), si_prep(s2)], 1),
-                             consts)
+                             consts, tables)
 
     return render2

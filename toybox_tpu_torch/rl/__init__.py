@@ -1,1 +1,1 @@
-"""Policies, distributions and checkpoint loading for evaluation."""
+"""Policies, distributions, checkpoints, PPO and its test envs."""

@@ -1,11 +1,18 @@
 """Categorical action distribution (port of
-toybox_tpu.rl.distributions ``CategoricalPd``)."""
+toybox_tpu.rl.distributions ``CategoricalPd`` and ``make_pdtype`` for a
+discrete action space)."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def gumbel_max(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """argmax(logits + noise): a categorical draw when ``noise`` is
+    standard Gumbel noise. Tests hand it the JAX draw's noise."""
+    return torch.argmax(logits + noise, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +25,7 @@ class CategoricalPd:
         u = torch.rand(self.logits.shape, generator=generator,
                        device=self.logits.device, dtype=self.logits.dtype)
         u = u.clamp_min(torch.finfo(u.dtype).tiny)
-        return torch.argmax(self.logits - torch.log(-torch.log(u)), dim=-1)
+        return gumbel_max(self.logits, -torch.log(-torch.log(u)))
 
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1)
@@ -30,3 +37,21 @@ class CategoricalPd:
     def entropy(self) -> torch.Tensor:
         logp = torch.log_softmax(self.logits, dim=-1)
         return -(logp.exp() * logp).sum(-1)
+
+
+def make_pdtype(space):
+    """(n_params, distribution class) for an int action count or a Discrete space
+    (an object with ``n``); other spaces are not ported yet."""
+    if isinstance(space, int):
+        n = space
+    elif type(space).__name__ == "Discrete":
+        n = int(space.n)
+    else:
+        raise NotImplementedError(f"no pdtype for space {space} (only "
+                                  "discrete action spaces are ported)")
+    return n, CategoricalPd
+
+
+def pd_from_logits(space, logits: torch.Tensor) -> CategoricalPd:
+    _, pd_class = make_pdtype(space)
+    return pd_class(logits)

@@ -14,9 +14,12 @@ Phases, each printing one line per game with its own wall time:
      load both entry points of each (frames, warped fused frames);
   3. each kernel against its plain PyTorch version on the card, single,
      fused and warped fused frames, at N = 10 (the serve), 256 and 1024
-     envs: exactly equal; kernel, plain and bound times at N = 1024, and
-     for the warp form the time of the path it replaces (fused kernel,
-     then the two-matmul warp);
+     envs, on random play and (SI, Amidar) on doctored edge-case states:
+     exactly equal; at N = 1024 the kernel's own device time
+     (torch.profiler), the call's time (CUDA events, host dispatch
+     included), the plain version's and the bound, and for the warp form
+     the time of the path it replaces (fused kernel, then the two-matmul
+     warp);
   4. the batched engine stepped on cuda and on cpu from the same seeds
      and actions: every state tensor bit-equal; the pipeline and the
      policy on cuda and on cpu: rewards equal, observations within 1 grey
@@ -124,6 +127,28 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, symbol: str, iters: int = 20) -> float:
+    """Mean device time in ms of one launch of the CUDA kernel whose name
+    holds `symbol`, from torch.profiler's kernel records over iters calls
+    of fn() (after warm-up). The profiler may drop records, so the mean is
+    over the records it kept; it fails if it kept none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and symbol in e.key]
+    seen = sum(e.count for e in rows)
+    check(seen > 0, f"the profiler kept no record of {symbol}")
+    return sum(e.device_time_total for e in rows) / seen / 1e3
+
+
 def _rows(module, s, n: int):
     return module.State(**{f: getattr(s, f)[:n] for f in module.FIELDS})
 
@@ -202,6 +227,178 @@ def amidar_states(cfg, n: int, seed: int):
     return s, _next(am, cfg, s, r)
 
 
+def _cases(n: int, count: int, shift: int):
+    """Env index masks of `count` cases, env i taking case
+    (i + shift) % count."""
+    case = (np.arange(n) + shift) % count
+    return [case == k for k in range(count)]
+
+
+def si_edge_fields(f: dict, shift: int = 0) -> dict:
+    """Doctored Space Invaders states, as edits of a batch's fields (numpy
+    arrays, the engine's State fields) -> the edited fields. Env i takes
+    case (i + shift) % 8: sprites straddling each frame edge and past it,
+    the formation anchor pushing cells past the left, right, top and
+    bottom edges (and far off the frame), lasers over the ship and over
+    the shields, half-eroded shields, hidden sprites."""
+    f = {k: np.array(v) for k, v in f.items()}
+    c = _cases(f["ufo_x"].shape[0], 8, shift)
+    n_sh = f["shield_alpha"].shape[1]
+
+    def put(name, case, value, col=slice(None)):
+        a = f[name]
+        if a.ndim == 1:
+            a[case] = value
+        else:
+            a[case, col] = value
+
+    for k, (ax, ay) in enumerate([(-40, 20), (250, -20), (3, 150), (-60, 40),
+                                  (290, 100), (-300, 500), (1, -107),
+                                  (319, 209)]):
+        put("enemy_x", c[k], ax, 0)
+        put("enemy_y", c[k], ay, 0)
+    show = np.arange(36) % 5 != 2               # a thinned formation
+    f["enemy_alive"][c[0] | c[1] | c[4]] = show
+    f["enemy_death_counter"][c[0] | c[1] | c[4]] = -1
+    # case 0: UFO over the left edge, ship over the right, lasers over the
+    # top and bottom edges and past the right
+    put("ufo_appearance_counter", c[0], 0)
+    put("ufo_x", c[0], -7)
+    put("ufo_y", c[0], 30)
+    put("ship_alive", c[0], True)
+    put("ship_x", c[0], 312)
+    put("ship_y", c[0], 185)
+    put("elaser_alive", c[0], True)
+    for j, (x, y) in enumerate([(100, -3), (120, 206), (321, 50), (-2, 60)]):
+        put("elaser_x", c[0], x, j)
+        put("elaser_y", c[0], y, j)
+    # case 1: UFO past the top, ship over the bottom edge, UFO over the
+    # formation
+    put("ufo_appearance_counter", c[1], 0)
+    put("ufo_x", c[1], 150)
+    put("ufo_y", c[1], -12)
+    put("ship_alive", c[1], True)
+    put("ship_x", c[1], 0)
+    put("ship_y", c[1], 205)
+    # case 2: lasers over the ship, the ship at the left edge
+    put("ship_alive", c[2], True)
+    put("ship_x", c[2], 40)
+    put("ship_y", c[2], 185)
+    put("ship_laser_alive", c[2], True)
+    put("ship_laser_x", c[2], 47)
+    put("ship_laser_y", c[2], 183)
+    put("elaser_alive", c[2], True)
+    for j, (x, y) in enumerate([(40, 190), (54, 180), (38, 186), (55, 194)]):
+        put("elaser_x", c[2], x, j)
+        put("elaser_y", c[2], y, j)
+    # case 3: lasers over the shields, the shields half eroded
+    put("ship_laser_alive", c[3], True)
+    put("ship_laser_x", c[3], 90)
+    put("ship_laser_y", c[3], 160)
+    put("elaser_alive", c[3], True)
+    for j, (x, y) in enumerate([(147, 155), (163, 170), (226, 168),
+                                (83, 172)]):
+        put("elaser_x", c[3], x, j)
+        put("elaser_y", c[3], y, j)
+    alpha = f["shield_alpha"]
+    rows = np.arange(alpha.shape[2])[:, None]
+    cols = np.arange(alpha.shape[3])[None, :]
+    for s in range(n_sh):
+        alpha[c[3], s] &= [cols >= 8, rows < 9, (rows + cols) % 2 == 0][s % 3]
+    alpha[c[4], :, :, :8] = False
+    # case 4: hidden sprites over the formation and the shields
+    put("ufo_appearance_counter", c[4], 5)
+    put("ufo_x", c[4], 100)
+    put("ufo_y", c[4], 110)
+    put("ship_alive", c[4], False)
+    put("ship_death_counter", c[4], -1)
+    put("ship_laser_alive", c[4], False)
+    put("ship_laser_x", c[4], 90)
+    put("ship_laser_y", c[4], 160)
+    put("elaser_alive", c[4], False)
+    put("elaser_x", c[4], 300)
+    put("elaser_y", c[4], 110)
+    # case 5: UFO over the right edge, the ship half past the bottom
+    put("ufo_appearance_counter", c[5], 0)
+    put("ufo_x", c[5], 310)
+    put("ufo_y", c[5], 0)
+    put("ship_alive", c[5], True)
+    put("ship_x", c[5], 100)
+    put("ship_y", c[5], 215)
+    # case 6: the top-left corner: one pixel of the UFO and of a laser
+    put("ufo_appearance_counter", c[6], 0)
+    put("ufo_x", c[6], -15)
+    put("ufo_y", c[6], -9)
+    put("elaser_alive", c[6], True)
+    put("elaser_x", c[6], -1, 0)
+    put("elaser_y", c[6], -7, 0)
+    # case 7: the bottom-right corner, the ship dying (still drawn)
+    put("ufo_appearance_counter", c[7], 0)
+    put("ufo_x", c[7], 319)
+    put("ufo_y", c[7], 209)
+    put("ship_alive", c[7], False)
+    put("ship_death_counter", c[7], 10)
+    put("ship_x", c[7], 305)
+    put("ship_y", c[7], 201)
+    return f
+
+
+def amidar_edge_fields(f: dict, shift: int = 0) -> dict:
+    """Doctored Amidar states, as edits of a batch's fields (numpy arrays,
+    world coordinates: pixel = origin + world // 16) -> the edited fields.
+    Env i takes case (i + shift) % 6: enemies and the player straddling
+    each frame edge and past it, at the board's four corners overlapping
+    each other and the player, on negative and unaligned world
+    coordinates, and hidden enemies on the player."""
+    f = {k: np.array(v) for k, v in f.items()}
+    c = _cases(f["player_x"].shape[0], 6, shift)
+
+    def world(px, origin):
+        return (np.asarray(px) - origin) * 16
+
+    def place(case, enemies, player, exists=True):
+        ex, ey = zip(*enemies)
+        f["enemy_x"][case] = world(ex, 16)
+        f["enemy_y"][case] = world(ey, 45)
+        f["enemy_exists"][case] = exists
+        f["player_x"][case] = world(player[0], 16)
+        f["player_y"][case] = world(player[1], 45)
+
+    # 0: each frame edge, straddled and passed
+    place(c[0], [(-2, 100), (158, 120), (60, -3), (80, 247), (-5, 10),
+                 (161, 30), (100, -6), (20, 251)], (157, -2))
+    # 1: the board's top-left corner, all overlapping the player
+    place(c[1], [(16, 45), (17, 45), (16, 46), (18, 47), (15, 44), (19, 49),
+                 (14, 45), (16, 43)], (17, 46))
+    # 2: the board's bottom-right corner (board x < 144, y < 200)
+    place(c[2], [(140, 195), (141, 196), (142, 197), (143, 198), (144, 199),
+                 (139, 200), (141, 195), (138, 194)], (141, 197))
+    # 3: the top-right and bottom-left corners
+    place(c[3], [(140, 45), (141, 44), (142, 46), (143, 43), (16, 195),
+                 (15, 196), (14, 197), (17, 199)], (14, 198))
+    # 4: hidden enemies on the player, one shown beside it
+    place(c[4], [(70, 100)] * 7 + [(73, 103)], (70, 100),
+          exists=np.arange(8) == 7)
+    # 5: world coordinates that are negative and not multiples of 16
+    f["enemy_x"][c[5]] = [-1, -17, -300, 5, 2047, 2049, 15, -16]
+    f["enemy_y"][c[5]] = [-1, -730, 2495, 3, 15, 17, -721, 2490]
+    f["enemy_exists"][c[5]] = True
+    f["player_x"][c[5]] = -257
+    f["player_y"][c[5]] = 2479
+    return f
+
+
+def _edge_states(module, edit):
+    """`edit` (a function of numpy fields and a case shift) applied to a
+    torch state."""
+    def apply(s, shift=0):
+        fields = {k: getattr(s, k).cpu().numpy() for k in module.FIELDS}
+        dev = s.score.device
+        return s.replace(**{k: torch.as_tensor(v, device=dev)
+                            for k, v in edit(fields, shift).items()})
+    return apply
+
+
 @dataclasses.dataclass(frozen=True)
 class Game:
     """One ported game: its engine, model, frame kernel and checks."""
@@ -215,6 +412,7 @@ class Game:
     prep: object                 # (config, state) -> f32[N, P]
     consts: object               # config -> kernel constants
     states: object               # (config, n, seed) -> (s1, s2)
+    edges: object = None         # state -> doctored state (edge cases)
 
 
 GAMES = (
@@ -223,10 +421,12 @@ GAMES = (
          render_cuda.breakout_lumas, breakout_states),
     Game("space_invaders", si, "SpaceInvaders.regress.model", "si_frame",
          (710, 722), render_si, lambda c, s: render_si.si_prep(s),
-         render_si.si_consts, si_states),
+         render_si.si_consts, si_states,
+         _edge_states(si, si_edge_fields)),
     Game("amidar", am, "Amidar.regress.model", "amidar_frame", (475, 489),
          render_amidar, render_amidar.amidar_prep,
-         render_amidar.amidar_consts, amidar_states),
+         render_amidar.amidar_consts, amidar_states,
+         _edge_states(am, amidar_edge_fields)),
 )
 
 
@@ -239,30 +439,37 @@ def _bound(n_bytes: float, n_ops: float) -> tuple:
 
 
 def kernel_phase(g: Game):
-    """Exact comparison at the main paths' shapes; times at N = 1024."""
+    """Exact comparison at the main paths' shapes, on random play and, for
+    games with edge cases, on doctored states (each env's two frames take
+    different cases); times at N = 1024."""
     cfg = g.module.default_config(DEV)
     consts = g.consts(cfg)
     h, w = g.module.HEIGHT, g.module.WIDTH
     tables = obs.warp_tables(h, w, WARP, DEV)
     s1, s2 = g.states(cfg, THROUGHPUT_ENVS, 1)
+    sets = [("random play", s1, s2)]
+    if g.edges is not None:
+        sets.append(("edge cases", g.edges(s1), g.edges(s2, shift=1)))
     names = (g.kernel, g.kernel + "_fused", g.kernel + "_fused_warp")
     err = {k: 0 for k in names}
     preps = {}
-    for n in KERNEL_ENVS:
-        p1 = g.prep(cfg, _rows(g.module, s1, n))
-        p2 = g.prep(cfg, _rows(g.module, s2, n))
-        pair = torch.stack([p1, p2], 1)
-        for name, prep, tab in zip(names, (p1[:, None], pair, pair),
-                                   (None, None, tables)):
-            got = g.ops.render_frames(prep, consts, tab)
-            want = (g.ops.frame_plain(prep, consts) if tab is None
-                    else g.ops.frame_warp_plain(prep, consts, tab))
-            torch.cuda.synchronize()
-            diff = int((got.int() - want.int()).abs().max())
-            check(diff == 0, f"{name} differs from its plain version by "
-                             f"{diff} at N={n}")
-            err[name] = max(err[name], diff)
-            preps[name] = prep
+    for label, a, b in sets:
+        for n in KERNEL_ENVS:
+            p1 = g.prep(cfg, _rows(g.module, a, n))
+            p2 = g.prep(cfg, _rows(g.module, b, n))
+            pair = torch.stack([p1, p2], 1)
+            for name, prep, tab in zip(names, (p1[:, None], pair, pair),
+                                       (None, None, tables)):
+                got = g.ops.render_frames(prep, consts, tab)
+                want = (g.ops.frame_plain(prep, consts) if tab is None
+                        else g.ops.frame_warp_plain(prep, consts, tab))
+                torch.cuda.synchronize()
+                diff = int((got.int() - want.int()).abs().max())
+                check(diff == 0, f"{name} differs from its plain version by "
+                                 f"{diff} at N={n} on {label}")
+                err[name] = max(err[name], diff)
+                if label == "random play":
+                    preps[name] = prep
     timing = {}
     for name, prep in preps.items():
         n, frames = prep.shape[0], prep.shape[1]
@@ -280,8 +487,10 @@ def kernel_phase(g: Game):
             plain = lambda: g.ops.frame_warp_plain(  # noqa: E731
                 prep, consts, tab)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
+        call = lambda: g.ops.render_frames(prep, consts, tab)  # noqa: E731
+        symbol = g.kernel + ("_warp" if tab is not None else "") + "_kernel"
         timing[name] = dict(
-            ms=cuda_ms(lambda: g.ops.render_frames(prep, consts, tab)),
+            ms=kernel_ms(call, symbol), call_ms=cuda_ms(call),
             plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
             n=n)
     # the path the warp form replaces: the fused kernel, then two matmuls
@@ -289,7 +498,7 @@ def kernel_phase(g: Game):
     pair = preps[names[1]]
     timing[names[2]]["replaced_ms"] = cuda_ms(
         lambda: warp(g.ops.render_frames(pair, consts)))
-    return err, timing
+    return [label for label, _, _ in sets], err, timing
 
 
 def _engine_start(g: Game, st, d):
@@ -783,12 +992,14 @@ def main() -> int:
     err, timing = {}, {}
     for g in GAMES:
         t0 = time.perf_counter()
-        e, t = kernel_phase(g)
+        sets, e, t = kernel_phase(g)
         err.update(e)
         timing.update(t)
         phase(3, "kernel", t0, "exact at N=" + ",".join(
-            map(str, KERNEL_ENVS)) + "; " + "; ".join(
-                  f"{k} N={v['n']}: kernel {v['ms']:.4f} ms, plain "
+            map(str, KERNEL_ENVS)) + " on " + " and ".join(sets) + "; "
+              + "; ".join(
+                  f"{k} N={v['n']}: kernel {v['ms']:.4f} ms (profiler), "
+                  f"call {v['call_ms']:.4f} ms (events), plain "
                   f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
                   f"({v['bound_by']})" + (
                       f", replaced path (fused kernel + matmul warp) "
@@ -856,7 +1067,8 @@ def main() -> int:
                 name=name, route="cuda",
                 source=f"toybox_tpu_torch/csrc/{g.kernel}.cu",
                 replaces=f"{PALLAS}:{line}", launches=launches[name],
-                max_abs_err=err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
+                plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 library_ms=None))
     print(json.dumps({"kernels": kernels}))

@@ -49,7 +49,8 @@ def test_env_id_to_game():
 def _port_files():
     files = sorted((ROOT / "toybox_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "port_op_counts.py"]
+                    ROOT / "scripts" / "port_op_counts.py",
+                    ROOT / "scripts" / "frame_kernel_variants.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -204,7 +204,11 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_frame_sources_include_the_warp_header():
-    for name in ("breakout_frame", "si_frame", "amidar_frame"):
+    """Every frame kernel's build key covers the warp header; the Space
+    Invaders and Amidar kernels' also covers their chunk header."""
+    for name, headers in (("breakout_frame", ["warp84.cuh"]),
+                          ("si_frame", ["chunk16.cuh", "warp84.cuh"]),
+                          ("amidar_frame", ["chunk16.cuh", "warp84.cuh"])):
         names = [p.name for p in
                  render_cuda._sources(render_cuda.CSRC / f"{name}.cu")]
-        assert names == [f"{name}.cu", "warp84.cuh"]
+        assert names == [f"{name}.cu", *headers]

@@ -14,7 +14,7 @@ Phases, each printing one line per game with its own wall time:
      load both entry points of each (frames, warped fused frames);
   3. each kernel against its plain PyTorch version on the card, single,
      fused and warped fused frames, at N = 10 (the serve), 256 and 1024
-     envs, on random play and (SI, Amidar) on doctored edge-case states:
+     envs, on random play and on doctored edge-case states:
      exactly equal; at N = 1024 the kernel's own device time
      (torch.profiler), the call's time (CUDA events, host dispatch
      included), the plain version's and the bound, and for the warp form
@@ -39,7 +39,8 @@ Phases, each printing one line per game with its own wall time:
      the launch counts set to 0 just before each and read just after:
      Breakout's warp kernel launches 3 x 128 times; metrics finite;
      seconds per update and frames/s; then one more Breakout update,
-     train_step's collect and optimize halves timed apart, profiled;
+     train_step's collect and optimize halves timed apart, profiled (the
+     warp kernel's device time a rollout step);
   9. one PPO update on cuda against cpu from the same params, batch and
      permutations: params within UPDATE_ATOL;
  10. the identity learning test on the card (mlp, 16 envs, 60 updates):
@@ -127,26 +128,30 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, symbol: str, iters: int = 20) -> float:
+def kernel_ms(fn, symbol: str, iters: int = 20, windows: int = 3) -> float:
     """Mean device time in ms of one launch of the CUDA kernel whose name
     holds `symbol`, from torch.profiler's kernel records over iters calls
     of fn() (after warm-up). The profiler may drop records, so the mean is
-    over the records it kept; it fails if it kept none."""
+    over the records it kept, and a window in which it kept none is
+    profiled again, up to `windows` in all; it fails if none kept one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and symbol in e.key]
-    seen = sum(e.count for e in rows)
-    check(seen > 0, f"the profiler kept no record of {symbol}")
-    return sum(e.device_time_total for e in rows) / seen / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and symbol in e.key]
+        seen = sum(e.count for e in rows)
+        if seen > 0:
+            return sum(e.device_time_total for e in rows) / seen / 1e3
+    check(False, f"the profiler kept no record of {symbol} in {windows} "
+                 "windows")
 
 
 def _rows(module, s, n: int):
@@ -232,6 +237,65 @@ def _cases(n: int, count: int, shift: int):
     (i + shift) % count."""
     case = (np.arange(n) + shift) % count
     return [case == k for k in range(count)]
+
+
+def breakout_edge_fields(f: dict, shift: int = 0) -> dict:
+    """Doctored Breakout states, as edits of a batch's fields (numpy
+    arrays, the engine's State fields) -> the edited fields. Env i takes
+    case (i + shift) % 8: the paddle straddling and past each frame edge
+    and wall, its y moved by an intervention (0, 157, 300 and fractional),
+    balls on fractional and integer edges and far off the frame (+-1e6),
+    balls overlapping each other and the paddle, over bricks and over
+    walls, balls hidden by `reset` and by `ball_alive`, all bricks gone in
+    one env and all present in another."""
+    f = {k: np.array(v) for k, v in f.items()}
+    c = _cases(f["paddle_x"].shape[0], 8, shift)
+    # (paddle x, width, y) and four balls (x, y) per case
+    cases = [
+        # 0: the paddle over the left and top frame edges; balls on the
+        # left, right and bottom edges, at fractional coordinates
+        ((5.0, 24.0, 0.0), [(-0.5, 20.0), (0.5, 60.0), (239.5, 100.0),
+                            (120.0, 159.5)]),
+        # 1: the paddle over the right and bottom edges; balls far off
+        ((236.0, 24.0, 157.0), [(1e6, 50.0), (-1e6, 50.0), (100.0, 1e6),
+                                (100.0, -1e6)]),
+        # 2: two balls overlapping each other and the paddle, one on the
+        # paddle's edge, one over the left wall
+        ((100.0, 24.0, 143.0), [(100.0, 144.5), (101.5, 145.0),
+                                (111.3, 142.7), (6.2, 90.0)]),
+        # 3: the paddle past the right edge; balls over bricks, the top
+        # wall and the right wall
+        ((300.0, 24.0, 100.0), [(50.5, 45.0), (200.0, 130.0),
+                                (20.0, 16.5), (233.7, 80.2)]),
+        # 4: the paddle past the left edge; the balls waiting to be served
+        ((-30.0, 24.0, 50.0), [(60.0, 60.0), (70.0, 70.0), (80.0, 80.0),
+                               (90.0, 90.0)]),
+        # 5: the paddle from x = 0 exactly over the left wall, straddling
+        # the top wall at a fractional y; no ball alive
+        ((12.0, 24.0, 14.5), [(60.0, 60.0), (70.0, 70.0), (80.0, 80.0),
+                              (90.0, 90.0)]),
+        # 6: all bricks gone; the paddle over the right wall and past the
+        # bottom; balls on integer edges: the frame's corners and the
+        # brick band's
+        ((228.0, 24.0, 300.0), [(2.0, 2.0), (238.0, 158.0), (12.0, 43.0),
+                                (228.0, 139.0)]),
+        # 7: all bricks present; a paddle wider than the frame over the top
+        # edge; balls over the top-left and bottom-right corners and over
+        # the paddle
+        ((120.0, 1000.0, -2.0), [(3.5, 0.5), (236.5, 159.0), (116.0, 1.0),
+                                 (-1.5, 158.5)]),
+    ]
+    for k, ((px, width, py), balls) in enumerate(cases):
+        f["paddle_x"][c[k]] = px
+        f["paddle_width"][c[k]] = width
+        f["paddle_y"][c[k]] = py
+        f["ball_x"][c[k]] = [x for x, _ in balls]
+        f["ball_y"][c[k]] = [y for _, y in balls]
+        f["ball_alive"][c[k]] = k != 5
+        f["reset"][c[k]] = k == 4
+    f["brick_alive"][c[6]] = False
+    f["brick_alive"][c[7]] = f["brick_exists"][c[7]]
+    return f
 
 
 def si_edge_fields(f: dict, shift: int = 0) -> dict:
@@ -418,7 +482,8 @@ class Game:
 GAMES = (
     Game("breakout", bk, "Breakout.regress.model", "breakout_frame",
          (307, 324), render_cuda, lambda c, s: render_cuda.breakout_prep(s),
-         render_cuda.breakout_lumas, breakout_states),
+         render_cuda.breakout_lumas, breakout_states,
+         _edge_states(bk, breakout_edge_fields)),
     Game("space_invaders", si, "SpaceInvaders.regress.model", "si_frame",
          (710, 722), render_si, lambda c, s: render_si.si_prep(s),
          render_si.si_consts, si_states,
@@ -836,7 +901,7 @@ def train_profile_phase() -> str:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
 
-    def busy(fn, label):
+    def busy(fn, label, steps=0):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
@@ -852,10 +917,13 @@ def train_profile_phase() -> str:
         for e in ks:
             by[e.name] = by.get(e.name, 0) + e.time_range.elapsed_us()
         top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+        warp = sum(v for k, v in by.items() if "breakout_frame_warp" in k)
         return (f"{label}: {len(ks)} device kernels, device busy {total:.0f}"
                 f" us of {wall:.0f} us profiled ({100 * total / wall:.1f}%); "
                 "largest " + ", ".join(f"{k[:48]} {v:.0f} us"
-                                       for k, v in top))
+                                       for k, v in top)
+                + (f"; the warp kernel {warp / steps:.1f} us a rollout step"
+                   if steps else ""))
 
     short, short_step = trainer(8)
     detail = (f"breakout {TRAIN_ENVS} envs, one train_step split: collect "
@@ -863,7 +931,7 @@ def train_profile_phase() -> str:
               f"optimize ({RECIPE['noptepochs']} epochs x "
               f"{RECIPE['nminibatches']} minibatches) {t2 - t1:.2f} s; "
               + busy(lambda: short_step.collect(short),
-                     "collect of 8 rollout steps") + "; "
+                     "collect of 8 rollout steps", 8) + "; "
               + busy(lambda: train_step.optimize(state, collected),
                      f"optimize, {RECIPE['noptepochs']} epochs"))
     del collected, state, short, env

@@ -1,12 +1,14 @@
-"""The port's Space Invaders and Amidar frames (each CUDA kernel's plain
-version, which CPU tensors take) against ``luma2d(<game>.render)`` of the
-JAX package on doctored states at the frames' edges, single and fused:
-sprites straddling each frame edge and past it, the SI formation pushed
-past the edges, lasers over the ship and the shields, half-eroded
-shields, Amidar sprites overlapping at the board's corners, hidden
-sprites. The states are chip_smoke.py's edge cases (its phase 3 holds
-the kernels to the plain versions on them on the card), built here in
-JAX from the same numpy edits."""
+"""The port's Breakout, Space Invaders and Amidar frames (each CUDA
+kernel's plain version, which CPU tensors take) against
+``luma2d(<game>.render)`` of the JAX package on doctored states at the
+frames' edges, single and fused: sprites straddling each frame edge and
+past it, the Breakout paddle over the walls and moved in y, balls on
+fractional edges and far off the frame, all bricks gone or present, the
+SI formation pushed past the edges, lasers over the ship and the shields,
+half-eroded shields, Amidar sprites overlapping at the board's corners,
+hidden sprites. The states are chip_smoke.py's edge cases (its phase 3
+holds the kernels to the plain versions on them on the card), built here
+in JAX from the same numpy edits."""
 
 import jax
 import jax.numpy as jnp
@@ -15,18 +17,25 @@ import pytest
 import torch
 
 import toybox_tpu.games.amidar as jam
+import toybox_tpu.games.breakout as jbk
 import toybox_tpu.games.space_invaders as jsi
 from toybox_tpu.core.actions import ale_to_input
 from toybox_tpu.games.common import luma2d as j_luma2d
 from toybox_tpu_torch.games import amidar as tam
+from toybox_tpu_torch.games import breakout as tbk
 from toybox_tpu_torch.games import space_invaders as tsi
-from toybox_tpu_torch.ops import render_amidar, render_si
+from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 
-from chip_smoke import amidar_edge_fields, si_edge_fields
+from chip_smoke import (amidar_edge_fields, breakout_edge_fields,
+                        si_edge_fields)
 
-N = 8          # every SI case once, every Amidar case at least once
+N = 8          # every Breakout and SI case once, every Amidar case at least
+               # once
 
 GAMES = {
+    "breakout": (jbk, tbk, breakout_edge_fields,
+                 render_cuda.make_breakout_gray_renderer,
+                 render_cuda.make_breakout_gray_maxpool_renderer),
     "space_invaders": (jsi, tsi, si_edge_fields,
                        render_si.make_si_gray_renderer,
                        render_si.make_si_gray_maxpool_renderer),
@@ -92,15 +101,25 @@ def test_plain_frames_match_jax_render_at_the_edges(game, fused):
     np.testing.assert_array_equal(got, want)
 
 
+CONSTS = {"breakout": render_cuda.breakout_lumas,
+          "space_invaders": render_si.si_consts,
+          "amidar": render_amidar.amidar_consts}
+
+
 @pytest.mark.parametrize("game", sorted(GAMES))
 def test_edge_cases_reach_every_frame_edge(game):
     """The doctored states draw sprites on the frame's first and last rows
-    and columns: the cases are not clipped away."""
+    and columns: the cases are not clipped away. Breakout's walls reach
+    three edges by themselves, so there the paddle's and balls' luma must
+    reach all four."""
     _, tmod, _, port1, _ = GAMES[game]
     _, s1, _ = _states(game)
     tcfg = tmod.default_config("cpu")
-    consts = (render_si.si_consts(tcfg) if game == "space_invaders"
-              else render_amidar.amidar_consts(tcfg))
-    lit = port1(tcfg)(_to_torch(tmod, s1)).numpy() != int(consts[0])
+    consts = CONSTS[game](tcfg)
+    frames = port1(tcfg)(_to_torch(tmod, s1)).numpy()
+    lit = frames != int(consts[0])
+    if game == "breakout":              # (bg, wall, paddle, ball) lumas
+        assert int(consts[2]) == int(consts[3]) != int(consts[1])
+        lit = frames == int(consts[2])
     for edge in (lit[:, 0, :], lit[:, -1, :], lit[:, :, 0], lit[:, :, -1]):
         assert edge.any()

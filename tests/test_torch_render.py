@@ -1,7 +1,10 @@
 """The port's Breakout frame (the CUDA kernel's plain version, which CPU
 tensors take) and warp against the JAX package: within 1 grey level of
 ``luma2d(breakout.render)`` and of the Pallas kernel in interpret mode,
-the tolerance of tests/test_render_pallas.py."""
+the tolerance of tests/test_render_pallas.py; and the geometry that the
+CUDA kernel (csrc/breakout_frame.cu) composes in whole words."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -134,3 +137,39 @@ def test_wrapper_checks_inputs():
     before = dict(render_cuda.LAUNCHES)
     render_cuda.render_frames(torch.zeros(2, 1, render_cuda.PREP), lumas)
     assert render_cuda.LAUNCHES == before      # the plain version, no launch
+
+
+def test_static_frame_lies_on_whole_words():
+    """csrc/breakout_frame.cu composes the walls and the brick band in
+    4-pixel words, one byte a word, and stores 16-pixel chunks: every x
+    boundary of the static frame lies on a multiple of 4, and the width on
+    a multiple of 16. The kernel's own constants, read from its source,
+    agree with the engine's; and the plain frame with every sprite hidden
+    is constant over each aligned word."""
+    band_x0 = 12
+    band_x1 = band_x0 + tbk.N_COLS * tbk.BRICK_CELL_W
+    assert (tbk.LEFT_WALL, tbk.RIGHT_WALL) == (band_x0, band_x1)
+    for x in (tbk.LEFT_WALL, tbk.RIGHT_WALL, band_x0, band_x1,
+              tbk.BRICK_CELL_W):
+        assert x % 4 == 0
+    assert tbk.WIDTH % 16 == 0 and (tbk.HEIGHT * tbk.WIDTH) % 16 == 0
+    src = (render_cuda.CSRC / "breakout_frame.cu").read_text()
+    k = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                             src)}
+    assert (k["kH"], k["kW"], k["kPrep"], k["kSprite0"]) == (
+        tbk.HEIGHT, tbk.WIDTH, render_cuda.PREP, render_cuda.SPRITE0)
+    assert (k["kGridRows"], k["kGridCols"], k["kCellW"], k["kCellH"]) == (
+        tbk.MAX_RENDER_ROWS, tbk.N_COLS, tbk.BRICK_CELL_W, tbk.BRICK_CELL_H)
+    assert (k["kBandY0"], k["kBandX0"], k["kWallY0"], k["kWallY1"]) == (
+        tbk.BRICK_BAND_Y0, band_x0, tbk.TOP_WALL, tbk.TOP_WALL + 3)
+
+    r = np.random.default_rng(1)
+    prep = torch.zeros((3, render_cuda.PREP))
+    grid = r.uniform(-1.0, 300.0, (3, render_cuda.SPRITE0))
+    grid[r.random(grid.shape) < 0.3] = -1.0
+    prep[:, :render_cuda.SPRITE0] = torch.as_tensor(grid)
+    lumas = render_cuda.breakout_lumas(tbk.default_config("cpu"))
+    frames = render_cuda.frame_plain(prep[:, None], lumas).numpy()
+    words = frames.reshape(3, tbk.HEIGHT, tbk.WIDTH // 4, 4)
+    assert (words == words[..., :1]).all()
+    assert len(np.unique(frames)) > 10            # walls, bricks, background

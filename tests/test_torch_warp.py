@@ -9,6 +9,7 @@ lands next to a half-integer can round the other way. The banded sum
 itself is exactly the full ordered sum.
 """
 
+import re
 import sys
 import textwrap
 
@@ -204,11 +205,54 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_frame_sources_include_the_warp_header():
-    """Every frame kernel's build key covers the warp header; the Space
-    Invaders and Amidar kernels' also covers their chunk header."""
-    for name, headers in (("breakout_frame", ["warp84.cuh"]),
-                          ("si_frame", ["chunk16.cuh", "warp84.cuh"]),
-                          ("amidar_frame", ["chunk16.cuh", "warp84.cuh"])):
+    """Every frame kernel's build key covers the warp header and the chunk
+    header (Breakout's frames are composed in chunks and words too)."""
+    for name in ("breakout_frame", "si_frame", "amidar_frame"):
         names = [p.name for p in
                  render_cuda._sources(render_cuda.CSRC / f"{name}.cu")]
-        assert names == [f"{name}.cu", *headers]
+        assert names == [f"{name}.cu", "chunk16.cuh", "warp84.cuh"]
+
+
+# (min, max, sum) of the taps of the rows of bilinear_matrix(84, n), for
+# every frame height and width of the three games
+TAPS = {160: (3, 4, 318), 210: (4, 5, 418), 240: (4, 6, 478),
+        250: (4, 6, 498), 320: (6, 8, 636)}
+
+
+@pytest.mark.parametrize("n", sorted(TAPS))
+def test_bands_fit_the_warp_stage_sweep(n):
+    """What csrc/warp84.cuh's sweep assumes of the warp tables (its set-up
+    checks it on the card and stops the kernel otherwise): each input line
+    lies in the bands of one or two output lines, never three; the bands'
+    first lines never decrease and their last lines increase; band i + 2
+    starts after band i ends; the bands cover the frame."""
+    taps = tobs.tap_ranges(tobs.bilinear_matrix(84, n))
+    first, count = taps[:, 0], taps[:, 1]
+    last = first + count - 1
+    cover = np.zeros(n, int)
+    for f, c in taps:
+        cover[f:f + c] += 1
+    assert cover.min() == 1 and cover.max() == 2
+    assert (np.diff(first) >= 0).all() and (np.diff(last) > 0).all()
+    assert (first[2:] > last[:-2]).all()
+    assert first[0] == 0 and last[-1] == n - 1
+    assert (int(count.min()), int(count.max()), int(count.sum())) == TAPS[n]
+
+
+@pytest.mark.parametrize("name,tmod", [("breakout_frame", tbk),
+                                       ("si_frame", tsi),
+                                       ("amidar_frame", tam)])
+def test_warp_tap_bounds_of_each_kernel(name, tmod):
+    """Each kernel's frame size and its warp stage's tap bounds (kWarpKY
+    for a Wy row, kWarpKX for a Wx row, read from its source) equal the
+    game's frame and the most taps of its tables: no more (the padded taps
+    cost time), no fewer (the set-up would stop the kernel)."""
+    src = (render_cuda.CSRC / f"{name}.cu").read_text()
+    k = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                             src)}
+    assert (k["kH"], k["kW"]) == (tmod.HEIGHT, tmod.WIDTH)
+    assert k["kWarpKY"] == TAPS[tmod.HEIGHT][1]
+    assert k["kWarpKX"] == TAPS[tmod.WIDTH][1]
+    tables = tobs.warp_tables(tmod.HEIGHT, tmod.WIDTH, 84, "cpu")
+    assert int(tables.taps[0, :, 1].max()) == k["kWarpKY"]
+    assert int(tables.taps[1, :, 1].max()) == k["kWarpKX"]

@@ -59,8 +59,14 @@
 // it to 84 x 84 in the same launch (the `warp_to=84` form of
 // `make_amidar_gray_maxpool_renderer`; the warp is in warp84.cuh). It
 // takes a whole env per block, not a band: the warp needs every row. It
-// still composes pixel by pixel (`pixel_luma`); its redesign is later
-// work.
+// still composes pixel by pixel (`pixel_luma`; its redesign is later
+// work), the whole max-pooled frame into shared memory before the warp
+// stage sweeps it: a word of four pixels a thread, two pixels at a time,
+// with the constants in shared memory (`c.tile[code]`, an index that
+// differs between lanes, is serialized by the constant bank).
+// At 1024 envs on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
+// 3, torch.profiler): 390.5 us, where composing into the first version
+// of the warp stage took 505.2 us.
 //
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 40000 B = 41.0 MB of frames and reads 1024 * 2 * 1024 * 4 B =
@@ -101,6 +107,8 @@ constexpr int kEnemies = 8;
 constexpr int kSprites = kEnemies + 1;           // then the player
 constexpr int kRowChunks = kW / kChunk;          // 10
 constexpr int kThreads = 256;
+constexpr int kWarpKY = 6;                       // Wy taps (250 -> 84)
+constexpr int kWarpKX = 4;                       // Wx taps (160 -> 84)
 constexpr int kMaxBands = 25;                    // bands of >= 10 rows
 constexpr int kTileWords = kBoardW / 4;          // a board row's words
 constexpr int kConsts = 6;
@@ -118,6 +126,10 @@ struct Consts {
   uint32_t tile_bytes;    // byte k: the luma byte of tile code k
   uint32_t bg_word, enemy_word, player_word;  // bytes replicated 4 times
 };
+
+// The warp entry's stage (see warp84.cuh): 12 warps a block, on the whole
+// frame composed first, in dynamic shared memory (above 48 KB).
+using WarpShared = warp84::Shared<kH, kW, kWarpKY, 12, 0>;
 
 // ---------------------------------------------------------------------------
 // The per-pixel composition of the warp entry point
@@ -266,23 +278,45 @@ amidar_frame_kernel(const float* __restrict__ prep,
   }
 }
 
-__global__ void __launch_bounds__(warp84::kThreads)
+__global__ void __launch_bounds__(WarpShared::kThreads, 2)
 amidar_frame_warp_kernel(const float* __restrict__ prep,
                          uint8_t* __restrict__ out, Consts c,
                          warp84::Args a) {
+  extern __shared__ float4 smem4[];
+  WarpShared& ws = *reinterpret_cast<WarpShared*>(smem4);
   __shared__ float sp[2 * kPrep];
+  // the constants in shared memory: pixel_luma indexes them by a value
+  // that differs between lanes, which the constant bank serializes
+  __shared__ Consts sc;
   const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
-  for (int i = threadIdx.x; i < 2 * kPrep; i += blockDim.x) {
+  for (int i = threadIdx.x; i < 2 * kPrep; i += WarpShared::kThreads) {
     sp[i] = src[i];
   }
+  if (threadIdx.x == 0) sc = c;
+  warp84::load_taps(ws, a);
   __syncthreads();
-  const float* p0 = sp;
-  const float* p1 = sp + kPrep;
-  warp84::compose_and_warp<kH, kW>(
-      [=](int y, int x) {
-        return fmaxf(pixel_luma(p0, y, x, c), pixel_luma(p1, y, x, c));
-      },
-      a, out + static_cast<size_t>(blockIdx.x) * a.size * a.size);
+  // the max-pooled frame into the stage's frame rows, a word of four
+  // pixels a thread, two pixels at a time
+  uint32_t* img = reinterpret_cast<uint32_t*>(warp84::frame(ws));
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kH * kW / 4; i += WarpShared::kThreads) {
+    const int y = i / (kW / 4);
+    const int x0 = 4 * (i - y * (kW / 4));
+    uint32_t word = 0;
+#pragma unroll 2
+    for (int b = 0; b < 4; ++b) {
+      word |= static_cast<uint32_t>(static_cast<int>(
+          fmaxf(pixel_luma(sp, y, x0 + b, sc),
+                pixel_luma(sp + kPrep, y, x0 + b, sc)))) << (8 * b);
+    }
+    img[i] = word;
+  }
+  warp84::Cols<kWarpKX> cols;
+  warp84::prepare(ws, a, cols);
+  __syncthreads();
+  warp84::sweep(ws, cols, warp84::NoCompose{},
+                out + static_cast<size_t>(blockIdx.x) * warp84::kSize *
+                          warp84::kSize);
 }
 
 // The host constants (see amidar_frame below) -> Consts; false if
@@ -343,17 +377,17 @@ extern "C" int amidar_frame_warp(const float* prep, uint8_t* out, int n,
                                  const int* taps, int size, int device,
                                  void* stream) {
   Consts c;
-  if (!parse_consts(consts, n_consts, &c) || size <= 0) {
+  if (!parse_consts(consts, n_consts, &c) || size != warp84::kSize) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = warp84::smem_bytes(kH, kW, size);
   err = warp84::allow_smem(
-      reinterpret_cast<const void*>(amidar_frame_warp_kernel), smem);
+      reinterpret_cast<const void*>(amidar_frame_warp_kernel),
+      sizeof(WarpShared));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    amidar_frame_warp_kernel<<<n, warp84::kThreads, smem,
+    amidar_frame_warp_kernel<<<n, WarpShared::kThreads, sizeof(WarpShared),
                                static_cast<cudaStream_t>(stream)>>>(
         prep, out, c, warp84::Args{wy, wx, taps, size});
   }

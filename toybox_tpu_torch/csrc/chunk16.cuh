@@ -1,5 +1,6 @@
 // The 16-pixel chunk composition shared by the frame kernels of
-// csrc/si_frame.cu and csrc/amidar_frame.cu (their frame entry points).
+// csrc/si_frame.cu, csrc/amidar_frame.cu and csrc/breakout_frame.cu (their
+// frame entry points, and Breakout's warp entry point).
 //
 // A thread composes 16 consecutive pixels of a row as four u32 words of
 // four u8 pixels each, and writes them with one 16-byte store. Each layer
@@ -29,6 +30,22 @@ __device__ __forceinline__ int2 span(float lo_f, float size, int limit) {
   return make_int2(
       static_cast<int>(fminf(fmaxf(ceilf(lo_f), 0.0f), limit)),
       static_cast<int>(fminf(fmaxf(ceilf(hi_f), 0.0f), limit)));
+}
+
+// The two-edge form: the integer pixels [lo, hi) that the f32 test
+// lo_f <= x < hi_f covers for integer x, clipped to [0, limit] as above.
+// A NaN edge covers nothing, as the f32 compares do.
+__device__ __forceinline__ int2 span2(float lo_f, float hi_f, int limit) {
+  if (lo_f != lo_f || hi_f != hi_f) return make_int2(0, 0);
+  return make_int2(
+      static_cast<int>(fminf(fmaxf(ceilf(lo_f), 0.0f), limit)),
+      static_cast<int>(fminf(fmaxf(ceilf(hi_f), 0.0f), limit)));
+}
+
+// v (< 2^23) as f32, exactly, without an integer-to-float conversion:
+// the bits 0x4B000000 | v are the float 2^23 + v.
+__device__ __forceinline__ float exact_float(uint32_t v) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
 }
 
 // Bits of the pixels [a, b) in the chunk that starts at x0.

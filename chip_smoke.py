@@ -46,9 +46,22 @@ Phases, each printing one line per game with its own wall time:
  10. the identity learning test on the card (mlp, 16 envs, 60 updates):
      mean reward > 0.8;
  11. the CLI: ``toybox_tpu_torch.run.main`` trains 2 updates at 64 envs
-     and saves the policy, which reads back through the port's reader.
+     and saves the policy, which reads back through the port's reader;
+ 12. behavior (a main path, the gate of the intervention API): each
+     behavioral scenario's set-up captured on the card (config and state
+     JSON equal to the same capture on the CPU), N = 10 and 256 envs
+     started from it by ``reset_to`` and played at random, the single
+     and fused frame kernels exactly equal to their plain versions on
+     those states (no shields, moved shields, 0 and 1 enemies, one
+     brick, a channel, one serve position); then ``run_all_gated`` with
+     the committed ppo models, cut in depth (GATE_EPISODES episodes of
+     at most GATE_MAX_FRAMES frames), the launch counts set to 0 just
+     before and read just after: the game's frame kernels must have
+     launched and every score must be finite (pass/fail at this depth is
+     printed, not required).
 
-Then a JSON line of the kernels, the total time, and as the last line
+Then a JSON line of the kernels (``launches`` from the serve or the train
+phase, ``gate_launches`` from phase 12), the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -81,6 +94,9 @@ from toybox_tpu_torch.rl import ppo
 from toybox_tpu_torch.rl.checkpoint import load_state_dict
 from toybox_tpu_torch.rl.policies import build_eval_policy, build_policy
 from toybox_tpu_torch.rl.test_envs import make_discrete_identity_env
+from toybox_tpu_torch.sample_tests import get_scenarios
+from toybox_tpu_torch.sample_tests.families import overrides_for
+from toybox_tpu_torch.sample_tests.runner import capture_setup, run_all_gated
 
 ROOT = Path(__file__).resolve().parent
 MODELS = ROOT / "models"
@@ -99,6 +115,8 @@ THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 100
 ENGINE_ENVS, ENGINE_STEPS = 256, 200
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
 PROFILE_STEPS = 10
+BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
+GATE_EPISODES, GATE_MAX_FRAMES = 2, 1000
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
 DEV = "cuda"
 PALLAS = "toybox_tpu/ops/render_pallas.py"
@@ -1024,6 +1042,88 @@ def cli_phase() -> str:
             f"back equal; progress.csv {len(rows) - 1} rows")
 
 
+def _kernels_exact(g: Game, cfg, consts, s1, s2, where: str) -> None:
+    """The single kernel on s1 and the fused one on (s1, s2) exactly equal
+    to their plain versions."""
+    p1, p2 = g.prep(cfg, s1), g.prep(cfg, s2)
+    for name, prep in ((g.kernel, p1[:, None]),
+                       (g.kernel + "_fused", torch.stack([p1, p2], 1))):
+        got = g.ops.render_frames(prep, consts)
+        want = g.ops.frame_plain(prep, consts)
+        diff = int((got.int() - want.int()).abs().max())
+        check(diff == 0, f"{name} differs from its plain version by {diff} "
+                         f"{where}")
+
+
+def behavior_phase(g: Game, state_dict):
+    """The gate path of the intervention API. Each scenario's set-up is
+    captured on the card and on the cpu (equal JSON); N envs start from it
+    by reset_to and play at random, and the single and fused kernels are
+    held exactly to their plain versions on those states at the start and
+    after BEHAVIOR_FRAMES frames. Then run_all_gated with the committed
+    ppo model, cut in depth, the launch counts set to 0 just before and
+    read just after. Returns (launches, detail)."""
+    r = np.random.default_rng(9)
+    checked = []
+    for cls in get_scenarios(g.name):
+        setup = capture_setup(cls(seed=0), device=DEV)
+        check(setup == capture_setup(cls(seed=0), device="cpu"),
+              f"{g.name} {cls.__name__}: the set-up captured on the card "
+              "differs from the cpu's")
+        cfg_js, st_js = setup
+        cfg = g.module.config_from_json(cfg_js, DEV)
+        consts = g.consts(cfg)
+        tree = g.module.state_from_json(cfg, st_js)
+        for n in BEHAVIOR_ENVS:
+            env = make_batched_env(g.name, n, config=cfg,
+                                   fast_auto_reset=True, device=DEV)
+            st, _ = env.reset_to(tree, torch.arange(n, device=DEV) + 1)
+            start = st.game
+            for i in range(BEHAVIOR_FRAMES):
+                prev = st.game
+                a = torch.as_tensor(r.integers(0, env.num_actions, n),
+                                    device=DEV)
+                st = env.step(st, a)[0]
+                if i == 0:
+                    _kernels_exact(g, cfg, consts, start, st.game,
+                                   f"at the start of {cls.__name__}, N={n}")
+            _kernels_exact(g, cfg, consts, prev, st.game,
+                           f"after {BEHAVIOR_FRAMES} frames of "
+                           f"{cls.__name__}, N={n}")
+        torch.cuda.synchronize()
+        checked.append(cls.__name__)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = run_all_gated(g.name, state_dict=state_dict,
+                            episodes=GATE_EPISODES,
+                            max_frames=GATE_MAX_FRAMES,
+                            overrides=overrides_for("ppo", g.name),
+                            device=DEV)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(render_cuda.LAUNCHES)
+    mine = {k: launches[k] for k in (g.kernel, g.kernel + "_fused")}
+    check(all(v > 0 for v in mine.values()),
+          f"a {g.name} frame kernel did not launch in the gate: {launches}")
+    lines = []
+    for name, res in results.items():
+        for key in ("scores", "control"):
+            vals = res[key] or []
+            check(all(math.isfinite(v) for v in vals),
+                  f"{g.name} {name} {key} not finite: {vals}")
+        status = ("WAIVED" if res["passed"] is None
+                  else "PASS" if res["passed"] else "FAIL")
+        lines.append(f"{name} {status} scores {res['scores']} control "
+                     f"{res['control']} ({res['seconds']:.1f} s)")
+    detail = (f"{g.name}: kernels exact on the reset_to states of "
+              f"{', '.join(checked)} at N={BEHAVIOR_ENVS}; gate "
+              f"{GATE_EPISODES} episodes x <= {GATE_MAX_FRAMES} frames "
+              f"in {dt:.1f} s: " + "; ".join(lines)
+              + f"; launches {launches}")
+    return mine, detail
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1125,6 +1225,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase(11, "cli", t0, cli_phase())
 
+    # 12. behavior: the gate path of the intervention API
+    gate_launches = {}
+    for g in GAMES:
+        t0 = time.perf_counter()
+        mine, detail = behavior_phase(g, state_dicts[g.name])
+        gate_launches.update(mine)
+        phase(12, "behavior", t0, detail)
+
     kernels = []
     for g in GAMES:
         for name, line in zip((g.kernel, g.kernel + "_fused",
@@ -1135,6 +1243,7 @@ def main() -> int:
                 name=name, route="cuda",
                 source=f"toybox_tpu_torch/csrc/{g.kernel}.cu",
                 replaces=f"{PALLAS}:{line}", launches=launches[name],
+                gate_launches=gate_launches.get(name, 0),
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],

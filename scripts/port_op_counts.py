@@ -19,8 +19,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from toybox_tpu_torch.core.actions import ale_to_input
-from toybox_tpu_torch.envs.batched import get_game, make_batched_env
+from toybox_tpu_torch.envs.batched import make_batched_env
 from toybox_tpu_torch.envs.pipeline import make_rl_env
+from toybox_tpu_torch.games import get_game
 from toybox_tpu_torch.rl.policies import build_eval_policy
 
 GAMES = ("breakout", "space_invaders", "amidar")

@@ -9,3 +9,8 @@ PyTorch versions run only for tensors that lie on the CPU.
 This package imports ``torch`` and ``numpy`` and never ``jax``, ``flax``,
 ``msgpack`` or ``toybox_tpu``.
 """
+
+from toybox_tpu_torch.ctoybox import Input, Simulator, State, Toybox
+from toybox_tpu_torch.games import GAMES, get_game
+
+__all__ = ["Toybox", "Simulator", "State", "Input", "GAMES", "get_game"]

@@ -3,8 +3,10 @@ toybox_tpu.envs.batched ``make_batched_env``).
 
 State is a struct of tensors with a leading env axis; ``step`` steps every
 env at once, auto-resets finished envs with a masked select, and returns
-reward = max(score delta, 0) and done = lives <= 0. This slice ports the
-env the pipeline drives, which renders no frame of its own.
+reward = max(score delta, 0) and done = lives <= 0. ``reset_to`` starts
+every env from one single-env state (the batched ``write_state_json``).
+This slice ports the env the pipeline drives, which renders no frame of
+its own.
 """
 
 from __future__ import annotations
@@ -16,21 +18,10 @@ import torch
 
 from toybox_tpu_torch.core import rng as _rng
 from toybox_tpu_torch.core.actions import ale_to_input
-from toybox_tpu_torch.games import amidar, breakout, space_invaders
+from toybox_tpu_torch.games import get_game
 
 I32 = torch.int32
 F32 = torch.float32
-
-GAMES = {"breakout": breakout, "space_invaders": space_invaders,
-         "amidar": amidar}
-
-
-def get_game(name: str):
-    try:
-        return GAMES[name]
-    except KeyError:
-        raise ValueError(f"game {name!r} is not ported yet; have "
-                         f"{sorted(GAMES)}") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +31,9 @@ class EnvState:
     episode_return: torch.Tensor   # f32[N]
     episode_length: torch.Tensor   # i32[N]
     seeds: torch.Tensor            # int64[N] u32 reseed counters
+    # False after reset_to: the step-constant fields may hold values that
+    # new_game does not write, so an auto-reset selects every field
+    constants_fresh: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +48,9 @@ class BatchedEnvFns:
     num_actions: int
     legal_actions: tuple
     frames_per_step: int = 1
+    # (tree, seeds, reseed=True) -> (state, obs): every env from one
+    # single-env game state (a batch of one, e.g. state_from_json)
+    reset_to: Callable = None
 
 
 def make_batched_env(game_name: str, num_envs: int, config=None,
@@ -63,9 +60,11 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
     DeepMind pipeline renders its own).
 
     fast_auto_reset: skip the auto-reset select on the game's
-    STEP_CONSTANT_FIELDS, which only new_game writes. Exact unless an
-    intervention changed one of them mid-run; training never does. A game
-    that lists no such fields takes the full select."""
+    STEP_CONSTANT_FIELDS, which only new_game writes, for states that
+    ``reset`` started. A state from ``reset_to`` may hold other values in
+    those fields (an intervention wrote them), so its auto-resets select
+    every field, as new_game resets them. A game that lists no such fields
+    takes the full select."""
     module = get_game(game_name)
     fast = fast_auto_reset and bool(getattr(module, "STEP_CONSTANT_FIELDS",
                                             ()))
@@ -75,19 +74,37 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
     legal = tuple(module.LEGAL_ACTIONS)
     legal_t = torch.as_tensor(legal, dtype=torch.int64, device=dev)
 
-    def _wrap(game, seeds):
+    def _wrap(game, seeds, constants_fresh=True):
         state = EnvState(
             game=game,
             prev_score=module.score(game).to(I32),
             episode_return=torch.zeros(num_envs, dtype=F32, device=dev),
             episode_length=torch.zeros(num_envs, dtype=I32, device=dev),
-            seeds=seeds)
+            seeds=seeds, constants_fresh=constants_fresh)
         return state, None
 
-    def reset(seeds):
-        seeds = torch.as_tensor(seeds, device=dev).to(torch.int64) \
+    def _seeds(seeds):
+        return torch.as_tensor(seeds, device=dev).to(torch.int64) \
             & _rng.MASK32
+
+    def reset(seeds):
+        seeds = _seeds(seeds)
         return _wrap(module.new_game(config, seeds), seeds)
+
+    def reset_to(tree, seeds, reseed: bool = True):
+        """Start every env from ``tree``, one env's game state (a batch of
+        one, e.g. ``module.state_from_json``): the batched analog of
+        ``write_state_json``. With ``reseed`` each env's engine rng is
+        derived from its seed, so that stochastic branches differ between
+        envs; ``reseed=False`` replays the stored rng in every env."""
+        seeds = _seeds(seeds)
+        game = tree.replace(**{
+            f: getattr(tree, f).to(dev).expand(
+                (num_envs,) + tuple(getattr(tree, f).shape[1:]))
+            for f in module.FIELDS})
+        if reseed:
+            game = game.replace(rng=_rng.seed(seeds))
+        return _wrap(game, seeds, constants_fresh=False)
 
     def step(state: EnvState, actions):
         """actions: int[N] indices into the legal action set."""
@@ -106,7 +123,7 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
         new_seeds = (_rng.mul32(state.seeds, 2654435761) + num_envs) \
             & _rng.MASK32
         seeds = torch.where(done, new_seeds, state.seeds)
-        if fast:
+        if fast and state.constants_fresh:
             fresh = module.dynamic_fields(config, _rng.seed(seeds))
         else:
             new = module.new_game(config, seeds)
@@ -130,10 +147,10 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
             prev_score=score_after,
             episode_return=torch.where(done, torch.zeros_like(ep_ret), ep_ret),
             episode_length=torch.where(done, zero_i, ep_len),
-            seeds=seeds)
+            seeds=seeds, constants_fresh=state.constants_fresh)
         return new_state, None, reward, done, info
 
     return BatchedEnvFns(
         game_name=game_name, num_envs=num_envs, obs_mode="none",
         reset=reset, step=step, obs_shape=(0,),
-        num_actions=len(legal), legal_actions=legal)
+        num_actions=len(legal), legal_actions=legal, reset_to=reset_to)

@@ -9,7 +9,9 @@
   still warped by the matmuls, as in the JAX package);
 - a 4-frame stack kept channel-first [N, 4, 84, 84], with an NHWC
   ``frames`` view at the public boundary, as in the JAX package;
-- episodic life (the stack restarts on life loss) and sign-clipped reward.
+- episodic life (the stack restarts on life loss) and sign-clipped reward;
+- ``reset_to``: every env from one game state, as the behavioral gate
+  starts its episodes from an intervened state.
 
 step() returns obs uint8 [N, 84, 84, stack].
 """
@@ -21,8 +23,8 @@ from typing import Any
 
 import torch
 
-from toybox_tpu_torch.envs.batched import (BatchedEnvFns, get_game,
-                                           make_batched_env)
+from toybox_tpu_torch.envs.batched import BatchedEnvFns, make_batched_env
+from toybox_tpu_torch.games import get_game
 from toybox_tpu_torch.ops import obs as obs_ops
 from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 
@@ -86,13 +88,20 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
     def restart(frame):
         return frame[:, None].expand(-1, frame_stack, -1, -1)
 
-    def reset(seeds):
-        env_state, _ = inner.reset(seeds)
+    def _wrap(env_state):
         frame = warp(render_gray(env_state.game))          # [N, 84, 84]
         state = PipelineState(env=env_state,
                               stack=restart(frame).contiguous(),
                               lives=module.lives(env_state.game).to(I32))
         return state, state.frames
+
+    def reset(seeds):
+        return _wrap(inner.reset(seeds)[0])
+
+    def reset_to(tree, seeds, reseed: bool = True):
+        """Start every env from one env's game state (see the batched
+        env's ``reset_to``); the frame stack restarts from its frame."""
+        return _wrap(inner.reset_to(tree, seeds, reseed=reseed)[0])
 
     def step(state: PipelineState, actions):
         env_state = state.env
@@ -138,4 +147,4 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
         reset=reset, step=step,
         obs_shape=(frame_size, frame_size, frame_stack),
         num_actions=inner.num_actions, legal_actions=inner.legal_actions,
-        frames_per_step=skip)
+        frames_per_step=skip, reset_to=reset_to)

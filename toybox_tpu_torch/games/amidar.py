@@ -28,7 +28,8 @@ import torch
 from toybox_tpu_torch.core import jsonutil, rng
 from toybox_tpu_torch.core.actions import LEGAL_ACTIONS as _LEGAL
 from toybox_tpu_torch.core.types import Input
-from toybox_tpu_torch.games.common import F32, pack_color, unpack_color
+from toybox_tpu_torch.games.common import (F32, pack_color, rand_words,
+                                           start_keys, unpack_color)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -61,10 +62,12 @@ MAX_HISTORY = 8
 # Tile codes
 EMPTY, UNPAINTED, PAINTED, CHASE_MARKER = 0, 1, 2, 3
 TILE_TAGS = ["Empty", "Unpainted", "Painted", "ChaseMarker"]
+TILE_CODE = {t: i for i, t in enumerate(TILE_TAGS)}
 
 # Direction codes + STOP; reverse = d ^ 1.
 UP, DOWN, LEFT, RIGHT, STOP = 0, 1, 2, 3, 4
 DIR_NAMES = ["Up", "Down", "Left", "Right"]
+DIR_CODE = {n: i for i, n in enumerate(DIR_NAMES)}
 _RIGHT_OF = (RIGHT, LEFT, UP, DOWN)   # indexed by UP, DOWN, LEFT, RIGHT
 _DIRV = np.array([[0, -1], [0, 1], [-1, 0], [1, 0], [0, 0]], np.int32)
 _REVERSE = np.array([1, 0, 3, 2, 4], np.int32)
@@ -302,6 +305,9 @@ class Config:
     unpainted_color: int
     painted_color: int
     inner_painted_color: int
+    default_board_bugs: bool
+    render_images: bool
+    rand: tuple                    # 4 u32 words: new_game(config)'s rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,6 +448,9 @@ def config_from_json(d: dict, device="cuda") -> Config:
         unpainted_color=color("unpainted_color"),
         painted_color=color("painted_color"),
         inner_painted_color=color("inner_painted_color"),
+        default_board_bugs=bool(d.get("default_board_bugs", True)),
+        render_images=bool(d.get("render_images", True)),
+        rand=rand_words(d),
     )
 
 
@@ -501,13 +510,14 @@ def _first_true(conds, values, default):
 # New game
 # ---------------------------------------------------------------------------
 
-def new_game(config: Config, seeds: torch.Tensor) -> State:
-    """Fresh games, one per u32 seed in ``seeds`` [N].
+def new_game(config: Config, seeds: torch.Tensor | None = None) -> State:
+    """Fresh games, one per u32 seed in ``seeds`` [N]; with no seeds, one
+    game from ``config.rand``.
 
     Constant fields are broadcast views shared by all envs: replace a
     field with a new tensor rather than writing into it."""
     dev = config.device
-    keys = rng.seed(torch.as_tensor(seeds, device=dev))
+    keys = start_keys(config, seeds)
     n = keys.shape[0]
     e = MAX_ENEMIES
 
@@ -953,3 +963,179 @@ def state_to_json(config: Config, s: State, i: int = 0) -> dict:
             "chase_junctions": list(config.chase_junctions),
         },
     }
+
+
+def config_to_json(config: Config) -> dict:
+    """The reference JSON config (the JAX ``config_to_json``): the board
+    from the config's tiles, the enemies with their AI protocols."""
+    inv = {UNPAINTED: "=", EMPTY: " ", CHASE_MARKER: "c", PAINTED: "p"}
+    grid = config.base_tiles.cpu().numpy().reshape(BOARD_H, BOARD_W)
+    host = {k: getattr(config, k).cpu().tolist() for k in (
+        "enemy_exists", "enemy_protocol", "enemy_route_index",
+        "enemy_spawn_tx", "enemy_spawn_ty")}
+    enemies = []
+    for i in range(MAX_ENEMIES):
+        if not host["enemy_exists"][i]:
+            continue
+        name = PROTOCOL_NAMES[host["enemy_protocol"][i]]
+        if name == "EnemyLookupAI":
+            enemies.append({name: {
+                "default_route_index": host["enemy_route_index"][i],
+                "next": 0}})
+        else:
+            enemies.append({name: {"start": {
+                "tx": host["enemy_spawn_tx"][i],
+                "ty": host["enemy_spawn_ty"][i]}}})
+
+    def color(p):
+        return jsonutil.color_to_json([(p >> sh) & 0xFF
+                                       for sh in (0, 8, 16, 24)])
+
+    return {
+        "board": ["".join(inv[int(c)] for c in row) for row in grid],
+        "enemies": enemies,
+        "jump_time": config.jump_time,
+        "chase_time": config.chase_time,
+        "box_bonus": config.box_bonus,
+        "chase_score_bonus": config.chase_score_bonus,
+        "start_lives": config.start_lives,
+        "start_jumps": config.start_jumps,
+        "default_board_bugs": config.default_board_bugs,
+        "render_images": config.render_images,
+        "player_start": {"tx": config.player_start[0],
+                         "ty": config.player_start[1]},
+        "bg_color": color(config.bg_color),
+        "player_color": color(config.player_color),
+        "enemy_color": color(config.enemy_color),
+        "unpainted_color": color(config.unpainted_color),
+        "painted_color": color(config.painted_color),
+        "inner_painted_color": color(config.inner_painted_color),
+        "rand": {"state": rng.to_u64_pair(config.rand)},
+    }
+
+
+def state_from_json(config: Config, d: dict) -> State:
+    """A batch of one game ([1, ...] tensors on ``config.device``) from the
+    reference JSON state; ``state_to_json(config, s, 0)`` gives it back.
+    Fewer than MAX_ENEMIES enemies leave the rest out through
+    ``enemy_exists``; fields the JSON does not carry come from
+    ``new_game(config)``."""
+    st = new_game(config)
+    tiles = np.array([[TILE_CODE[t] for t in row]
+                      for row in d["board"]["tiles"]], np.int8).reshape(-1)
+    painted = np.zeros(MAX_BOXES, bool)
+    for i, b in enumerate(d["board"]["boxes"][:MAX_BOXES]):
+        painted[i] = bool(b["painted"])
+    p = d["player"]
+    hist = np.full(MAX_HISTORY, -1, np.int32)
+    ph = p.get("history", [])[-MAX_HISTORY:]
+    hist[:len(ph)] = ph
+
+    e = MAX_ENEMIES
+    if len(d["enemies"]) > e:
+        raise ValueError(f"at most {e} enemies, got {len(d['enemies'])}")
+    ints = {k: np.full(e, v, np.int32) for k, v in (
+        ("x", 0), ("y", 0), ("speed", 8), ("protocol", 0), ("next", 0),
+        ("route_index", 0), ("vert", DOWN), ("horiz", RIGHT),
+        ("start_vert", DOWN), ("start_horiz", RIGHT), ("start_dir", RIGHT),
+        ("dir_field", RIGHT), ("vision", 15), ("seen_tx", -1),
+        ("seen_ty", -1), ("dir", STOP))}
+    ints["start_tx"] = config.enemy_spawn_tx.cpu().numpy().copy()
+    ints["start_ty"] = config.enemy_spawn_ty.cpu().numpy().copy()
+    exists = np.zeros(e, bool)
+    caught = np.zeros(e, bool)
+    for i, en in enumerate(d["enemies"]):
+        exists[i] = True
+        ints["x"][i], ints["y"][i] = en["position"]["x"], en["position"]["y"]
+        ints["speed"][i] = en["speed"]
+        caught[i] = bool(en["caught"])
+        ints["dir"][i] = STOP if en.get("step") is None else int(en["step"])
+        name = list(en["ai"].keys())[0]
+        args = en["ai"][name]
+        ints["protocol"][i] = PROTOCOL_CODE[name]
+        if args.get("next") is not None:
+            ints["next"][i] = int(args["next"])
+        if args.get("default_route_index") is not None:
+            ints["route_index"][i] = int(args["default_route_index"])
+        if args.get("start") is not None:
+            ints["start_tx"][i] = args["start"]["tx"]
+            ints["start_ty"][i] = args["start"]["ty"]
+        for key in ("vert", "horiz", "start_vert", "start_horiz",
+                    "start_dir"):
+            if args.get(key) is not None:
+                ints[key][i] = DIR_CODE[args[key]]
+        if args.get("dir") is not None:
+            ints["dir_field"][i] = DIR_CODE[args["dir"]]
+        if args.get("vision_distance") is not None:
+            ints["vision"][i] = int(args["vision_distance"])
+        if args.get("player_seen") is not None:
+            ints["seen_tx"][i] = args["player_seen"]["tx"]
+            ints["seen_ty"][i] = args["player_seen"]["ty"]
+    dev = config.device
+
+    def one(v, dtype=I32):
+        return torch.as_tensor(np.asarray(v), device=dev).to(dtype)[None]
+
+    ridx = one(np.clip(ints["route_index"], 0, MAX_ENEMIES - 1), I64)
+    rlen = config.route_len[ridx].clamp_min(1)
+    enemy = {f"enemy_{k}": one(v) for k, v in ints.items()}
+    return st.replace(
+        score=one(d["score"]), lives=one(d["lives"]),
+        level=one(d.get("level", 0)), jumps=one(d["jumps"]),
+        jump_timer=one(d["jump_timer"]), chase_timer=one(d["chase_timer"]),
+        rng=one(rng.from_u64_pair(d["rand"]["state"]), I64),
+        tiles=one(tiles, torch.int8), box_painted=one(painted, BOOL),
+        player_x=one(p["position"]["x"]), player_y=one(p["position"]["y"]),
+        player_dir=one(STOP if p.get("step") is None else int(p["step"])),
+        player_caught=one(bool(p["caught"]), BOOL),
+        player_speed=one(p["speed"]),
+        player_history=one(hist), player_history_len=one(len(ph)),
+        player_step=one(-1),
+        enemy_exists=one(exists, BOOL), enemy_caught=one(caught, BOOL),
+        enemy_route_len=rlen,
+        enemy_target=config.routes_flat[
+            ridx * MAX_ROUTE + enemy["enemy_next"].long() % rlen],
+        **enemy)
+
+
+def schema() -> dict:
+    return {
+        "type": "object",
+        "required": ["score", "lives", "level", "jumps", "jump_timer",
+                     "chase_timer", "rand", "player", "enemies", "board"],
+    }
+
+
+def query(config: Config, s: State, name: str, args=None, i: int = 0):
+    """The native queries (``amidar_<name>`` on the facade's state) of env
+    ``i``."""
+    if name == "tile_to_world":
+        return [int(args["tx"]) * WORLD_TX, int(args["ty"]) * WORLD_TY]
+    if name == "world_to_tile":
+        return [_tx_of(int(args["x"])), _ty_of(int(args["y"]))]
+    if name == "num_tiles_unpainted":
+        t = s.tiles[i]
+        return int(((t == UNPAINTED) | (t == CHASE_MARKER)).sum())
+    if name == "regular_mode":
+        return int(s.jump_timer[i]) == 0 and int(s.chase_timer[i]) == 0
+    if name == "jump_mode":
+        return int(s.jump_timer[i]) > 0
+    if name == "chase_mode":
+        return int(s.chase_timer[i]) > 0
+    if name == "jumps_remaining":
+        return int(s.jumps[i])
+    if name == "num_enemies":
+        return int(s.enemy_exists[i].sum())
+    if name == "enemy_tiles":
+        ex = s.enemy_exists[i].tolist()
+        txs = _tx_of(s.enemy_x[i]).tolist()
+        tys = _ty_of(s.enemy_y[i]).tolist()
+        return [[x, y] for x, y, m in zip(txs, tys, ex) if m]
+    if name == "enemy_tile":
+        k = int(args)
+        return [int(_tx_of(s.enemy_x[i, k])), int(_ty_of(s.enemy_y[i, k]))]
+    if name == "enemy_caught":
+        return bool(s.enemy_caught[i, int(args)])
+    if name == "player_tile":
+        return [int(_tx_of(s.player_x[i])), int(_ty_of(s.player_y[i]))]
+    raise ValueError(f"unknown amidar query: {name}")

@@ -21,7 +21,8 @@ import torch
 from toybox_tpu_torch.core import jsonutil, rng
 from toybox_tpu_torch.core.actions import LEGAL_ACTIONS as _LEGAL
 from toybox_tpu_torch.core.types import Input
-from toybox_tpu_torch.games.common import (F32, pack_color, rect_mask,
+from toybox_tpu_torch.games.common import (F32, pack_color, rand_words,
+                                           rect_mask, start_keys,
                                            unpack_color)
 
 I32 = torch.int32
@@ -92,8 +93,10 @@ class Config:
     """Game constants. Small per-table tensors live on ``device``; scalars
     are python numbers holding f32/i32 values."""
     device: torch.device
-    ball_start_x: torch.Tensor       # f32[4]
-    ball_start_y: torch.Tensor       # f32[4]
+    paddle_discrete_segments: int    # as the JSON gave it
+    ball_start_x: torch.Tensor       # f32[S] serve positions (S <= 4)
+    ball_start_y: torch.Tensor       # f32[S]
+    ball_start_angle: tuple          # S python floats holding f32 degrees
     ball_start_ux: torch.Tensor      # f32[4] unit serve direction
     ball_start_uy: torch.Tensor      # f32[4]
     seg_cos: torch.Tensor            # f32[nseg] paddle reflection
@@ -108,6 +111,7 @@ class Config:
     frame_color: int
     paddle_color: int
     ball_color: int
+    rand: tuple                      # 4 u32 words: new_game(config)'s rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,8 +179,10 @@ def config_from_json(d: dict, device="cuda") -> Config:
 
     return Config(
         device=device,
+        paddle_discrete_segments=int(d["paddle_discrete_segments"]),
         ball_start_x=t([s["x"] for s in starts], F32),
         ball_start_y=t([s["y"] for s in starts], F32),
+        ball_start_angle=tuple(_f32(a) for a in angles),
         ball_start_ux=t(ux, F32),
         ball_start_uy=t(uy, F32),
         seg_cos=t(np.cos(seg_angles).astype(np.float32), F32),
@@ -192,6 +198,7 @@ def config_from_json(d: dict, device="cuda") -> Config:
         frame_color=pack_color(jsonutil.color_from_json(d["frame_color"])),
         paddle_color=pack_color(jsonutil.color_from_json(d["paddle_color"])),
         ball_color=pack_color(jsonutil.color_from_json(d["ball_color"])),
+        rand=rand_words(d),
     )
 
 
@@ -200,8 +207,13 @@ def default_config(device="cuda") -> Config:
 
 
 def _serve_vector(config: Config, idx: torch.Tensor):
-    """Ball start pos/vel [N] for start-position indices idx [N]."""
+    """Ball start pos/vel [N] for start-position indices idx [N]. The draw
+    is in [0, 4); with fewer serve positions the index is clamped to the
+    last, as the JAX package's gather clamps it."""
     idx = idx.long()
+    n_starts = config.ball_start_x.shape[0]
+    if n_starts < 4:
+        idx = idx.clamp(max=n_starts - 1)
     speed = config.ball_speed_slow
     return (config.ball_start_x[idx], config.ball_start_y[idx],
             speed * config.ball_start_ux[idx],
@@ -276,13 +288,14 @@ def dynamic_fields(config: Config, keys: torch.Tensor) -> dict:
     )
 
 
-def new_game(config: Config, seeds: torch.Tensor) -> State:
-    """Fresh games, one per u32 seed in ``seeds`` [N].
+def new_game(config: Config, seeds: torch.Tensor | None = None) -> State:
+    """Fresh games, one per u32 seed in ``seeds`` [N]; with no seeds, one
+    game from ``config.rand``.
 
     Constant fields are broadcast views shared by all envs: replace a
     field with a new tensor rather than writing into it."""
     dev = config.device
-    keys = rng.seed(torch.as_tensor(seeds, device=dev))
+    keys = start_keys(config, seeds)
     n = keys.shape[0]
     full = lambda v: torch.full((n,), v, dtype=F32, device=dev)  # noqa: E731
     bricks = _default_bricks(config, n)
@@ -571,3 +584,117 @@ def state_to_json(config: Config, s: State, i: int = 0) -> dict:
         "balls": balls,
         "bricks": bricks,
     }
+
+
+def config_to_json(config: Config) -> dict:
+    """The reference JSON config (the JAX ``config_to_json``)."""
+    sx = config.ball_start_x.cpu().double().tolist()
+    sy = config.ball_start_y.cpu().double().tolist()
+    return {
+        "paddle_discrete_segments": config.paddle_discrete_segments,
+        "ball_start_positions": [
+            {"x": x, "y": y, "angle_degrees": a}
+            for x, y, a in zip(sx, sy, config.ball_start_angle)],
+        "start_lives": config.start_lives,
+        "row_scores": config.row_scores.cpu().tolist(),
+        "ball_speed_row_depth": config.ball_speed_row_depth,
+        "bg_color": _color_json_packed(config.bg_color),
+        "rand": {"state": rng.to_u64_pair(config.rand)},
+        "row_colors": [_color_json_packed(c)
+                       for c in config.row_colors.cpu().tolist()],
+        "frame_color": _color_json_packed(config.frame_color),
+        "paddle_color": _color_json_packed(config.paddle_color),
+        "ball_color": _color_json_packed(config.ball_color),
+        "ball_speed_fast": config.ball_speed_fast,
+        "ball_speed_slow": config.ball_speed_slow,
+    }
+
+
+def state_from_json(config: Config, d: dict) -> State:
+    """A batch of one game ([1, ...] tensors on ``config.device``) from the
+    reference JSON state; ``state_to_json(config, s, 0)`` gives it back.
+    f32 fields take the JSON floats rounded to f32, as the JAX codec does."""
+    if len(d["balls"]) > MAX_BALLS or len(d["bricks"]) > MAX_BRICKS:
+        raise ValueError(f"at most {MAX_BALLS} balls and {MAX_BRICKS} "
+                         f"bricks, got {len(d['balls'])} and "
+                         f"{len(d['bricks'])}")
+    balls = np.zeros((4, MAX_BALLS), np.float32)
+    balive = np.zeros(MAX_BALLS, bool)
+    for i, b in enumerate(d["balls"]):
+        balls[:, i] = (b["position"]["x"], b["position"]["y"],
+                       b["velocity"]["x"], b["velocity"]["y"])
+        balive[i] = True
+    geom = np.zeros((4, MAX_BRICKS), np.float32)
+    ints = np.zeros((4, MAX_BRICKS), np.int32)
+    flags = np.zeros((3, MAX_BRICKS), bool)
+    color = np.zeros(MAX_BRICKS, np.int64)
+    for i, b in enumerate(d["bricks"]):
+        geom[:, i] = (b["position"]["x"], b["position"]["y"],
+                      b["size"]["x"], b["size"]["y"])
+        ints[:, i] = (b["points"], b["depth"], b["row"], b["col"])
+        flags[:, i] = (b["alive"], b["destructible"], True)
+        color[i] = pack_color(jsonutil.color_from_json(b["color"]))
+    dev = config.device
+
+    def one(v, dtype):
+        return torch.as_tensor(np.asarray(v), device=dev).to(dtype)[None]
+
+    paddle = d["paddle"]
+    return State(
+        score=one(d.get("score", d.get("points", 0)), I32),
+        lives=one(d["lives"], I32),
+        level=one(d.get("level", 1), I32),
+        rng=one(rng.from_u64_pair(d["rand"]["state"]), I64),
+        is_dead=one(bool(d["is_dead"]), BOOL),
+        reset=one(bool(d["reset"]), BOOL),
+        paddle_x=one(np.float32(paddle["position"]["x"]), F32),
+        paddle_y=one(np.float32(paddle["position"]["y"]), F32),
+        paddle_vx=one(np.float32(paddle["velocity"]["x"]), F32),
+        paddle_width=one(np.float32(d["paddle_width"]), F32),
+        paddle_speed=one(np.float32(d["paddle_speed"]), F32),
+        ball_radius=one(np.float32(d["ball_radius"]), F32),
+        ball_x=one(balls[0], F32), ball_y=one(balls[1], F32),
+        ball_vx=one(balls[2], F32), ball_vy=one(balls[3], F32),
+        ball_alive=one(balive, BOOL),
+        brick_x=one(geom[0], F32), brick_y=one(geom[1], F32),
+        brick_w=one(geom[2], F32), brick_h=one(geom[3], F32),
+        brick_points=one(ints[0], I32), brick_depth=one(ints[1], I32),
+        brick_row=one(ints[2], I32), brick_col=one(ints[3], I32),
+        brick_alive=one(flags[0], BOOL),
+        brick_destructible=one(flags[1], BOOL),
+        brick_color=one(color, I64), brick_exists=one(flags[2], BOOL),
+    )
+
+
+def schema() -> dict:
+    return {
+        "type": "object",
+        "required": ["score", "lives", "level", "rand", "is_dead", "reset",
+                     "paddle", "paddle_width", "paddle_speed", "ball_radius",
+                     "balls", "bricks"],
+    }
+
+
+def bricks_remaining(s: State) -> torch.Tensor:
+    """i32[N] bricks alive."""
+    return (s.brick_alive & s.brick_exists).sum(-1, dtype=I32)
+
+
+def channel_count(s: State) -> torch.Tensor:
+    """i32[N] columns whose existing bricks are all dead."""
+    cols = torch.arange(N_COLS, device=s.brick_col.device)
+    in_col = (s.brick_col[:, None, :] == cols[:, None]) \
+        & s.brick_exists[:, None, :]                         # [N, C, M]
+    has_any = in_col.any(-1)
+    all_dead = (~in_col | ~s.brick_alive[:, None, :]).all(-1)
+    return (has_any & all_dead).sum(-1, dtype=I32)
+
+
+def query(config: Config, s: State, name: str, args=None, i: int = 0):
+    """The native queries (``breakout_<name>`` on the facade's state) of
+    env ``i``."""
+    if name == "bricks_remaining":
+        return int(bricks_remaining(s)[i])
+    if name == "channel_count":
+        return int(channel_count(s)[i])
+    raise ValueError(f"unknown breakout query: {name}")

@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from toybox_tpu_torch.core import rng
+
 F32 = torch.float32
 U8 = torch.uint8
 
@@ -63,3 +65,18 @@ def luma_packed(packed: torch.Tensor) -> torch.Tensor:
 def packed_lumas(colors) -> tuple:
     """f32 lumas of packed colors (python ints), as python floats."""
     return tuple(float(v) for v in luma_packed(torch.tensor(list(colors))))
+
+
+def start_keys(config, seeds) -> torch.Tensor:
+    """Engine rng states int64[N, 4] for new games: from u32 ``seeds`` [N],
+    or, when ``seeds`` is None, one game from the config's own rng words
+    (``config.rand``, as the JAX ``new_game(config)`` takes them)."""
+    if seeds is None:
+        return torch.tensor([list(config.rand)], dtype=torch.int64,
+                            device=config.device)
+    return rng.seed(torch.as_tensor(seeds, device=config.device))
+
+
+def rand_words(d: dict) -> tuple:
+    """The config JSON's ``rand`` pair as four u32 words (python ints)."""
+    return tuple(int(w) for w in rng.from_u64_pair(d["rand"]["state"]))

@@ -22,7 +22,8 @@ import torch
 from toybox_tpu_torch.core import rng
 from toybox_tpu_torch.core.actions import LEGAL_ACTIONS as _LEGAL
 from toybox_tpu_torch.core.types import Input
-from toybox_tpu_torch.games.common import pack_color, unpack_color
+from toybox_tpu_torch.games.common import (pack_color, rand_words,
+                                           start_keys, unpack_color)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -111,6 +112,7 @@ class Config:
     device: torch.device
     jitter: float                # the JSON's jitter rounded to f32, as the
                                  # step compares it (JAX's weak typing)
+    jitter_json: float           # the JSON's jitter as given
     shield_pos: tuple            # ((x, y), ...)
     shield_xy: torch.Tensor      # i32[S, 2]
     shield_mask: torch.Tensor    # bool[SHIELD_H, SHIELD_W] intact shield
@@ -118,6 +120,7 @@ class Config:
     enemy_points: torch.Tensor   # i32[N_ENEMIES] row_scores by enemy row
     enemy_protocol: int          # 0 TargetPlayer, 1 Random
     start_lives: int
+    rand: tuple                  # 4 u32 words: new_game(config)'s rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +173,7 @@ def config_from_json(d: dict, device="cuda") -> Config:
     return Config(
         device=device,
         jitter=float(np.float32(d["jitter"])),
+        jitter_json=float(d["jitter"]),
         shield_pos=shields,
         shield_xy=torch.as_tensor(np.asarray(shields, np.int32).reshape(-1, 2),
                                   device=device),
@@ -179,6 +183,7 @@ def config_from_json(d: dict, device="cuda") -> Config:
         enemy_protocol=ENEMY_PROTOCOLS.index(
             d.get("enemy_protocol", "TargetPlayer")),
         start_lives=int(d["start_lives"]),
+        rand=rand_words(d),
     )
 
 
@@ -199,13 +204,14 @@ def _shield_start(config: Config, n: int) -> torch.Tensor:
                                      SHIELD_W)
 
 
-def new_game(config: Config, seeds: torch.Tensor) -> State:
-    """Fresh games, one per u32 seed in ``seeds`` [N].
+def new_game(config: Config, seeds: torch.Tensor | None = None) -> State:
+    """Fresh games, one per u32 seed in ``seeds`` [N]; with no seeds, one
+    game from ``config.rand``.
 
     Constant fields are broadcast views shared by all envs: replace a
     field with a new tensor rather than writing into it."""
     dev = config.device
-    keys = rng.seed(torch.as_tensor(seeds, device=dev))
+    keys = start_keys(config, seeds)
     n = keys.shape[0]
 
     def full(v, dtype=I32, shape=()):
@@ -578,7 +584,8 @@ def state_to_json(config: Config, s: State, i: int = 0) -> dict:
     r, g, b = SHIELD_COLOR & 0xFF, (SHIELD_COLOR >> 8) & 0xFF, \
         (SHIELD_COLOR >> 16) & 0xFF
     shields = []
-    for k, (sx, sy) in enumerate(config.shield_pos):
+    for k in range(h["shield_alpha"].shape[0]):
+        sx, sy = config.shield_pos[k]
         alpha = h["shield_alpha"][k]
         data = [[{"r": r, "g": g, "b": b, "a": 255 if alpha[y, x] else 0}
                  for x in range(SHIELD_W)] for y in range(SHIELD_H)]
@@ -618,3 +625,103 @@ def state_to_json(config: Config, s: State, i: int = 0) -> dict:
             "death_counter": _none_if_neg(int(h["ufo_death_counter"])),
         },
     }
+
+
+def config_to_json(config: Config) -> dict:
+    """The reference JSON config (the JAX ``config_to_json``)."""
+    return {
+        "jitter": config.jitter_json,
+        "shields": [list(xy) for xy in config.shield_pos],
+        "row_scores": config.row_scores.cpu().tolist(),
+        "enemy_protocol": ENEMY_PROTOCOLS[config.enemy_protocol],
+        "start_lives": config.start_lives,
+        "rand": {"state": rng.to_u64_pair(config.rand)},
+    }
+
+
+def state_from_json(config: Config, d: dict) -> State:
+    """A batch of one game ([1, ...] tensors on ``config.device``) from the
+    reference JSON state; ``state_to_json(config, s, 0)`` gives it back.
+    The shield count is the JSON's; missing shield pixels stay clear."""
+    ex = np.zeros(N_ENEMIES, np.int32)
+    ey = np.zeros(N_ENEMIES, np.int32)
+    alive = np.zeros(N_ENEMIES, bool)
+    dc = np.full(N_ENEMIES, -1, np.int32)
+    for e in d["enemies"]:
+        i = int(e["id"])
+        ex[i], ey[i] = e["x"], e["y"]
+        alive[i] = bool(e["alive"])
+        if e.get("death_counter") is not None:
+            dc[i] = int(e["death_counter"])
+    nshields = len(d["shields"])
+    sa = np.zeros((nshields, SHIELD_H, SHIELD_W), bool)
+    for k, shield in enumerate(d["shields"]):
+        for y, row in enumerate(shield["data"][:SHIELD_H]):
+            for x, px in enumerate(row[:SHIELD_W]):
+                sa[k, y, x] = px["a"] > 0
+    lasers = np.zeros((4, MAX_ENEMY_LASERS), np.int32)   # alive, x, y, t
+    for k, las in enumerate(d.get("enemy_lasers", [])[:MAX_ENEMY_LASERS]):
+        lasers[:, k] = (1, las["x"], las["y"], las.get("t", 0))
+    ship = d["ship"]
+    mv = d.get("enemies_movement") or {"move_counter": 32, "move_dir": "Right",
+                                       "visual_orientation": True}
+    sl = d.get("ship_laser")
+    ufo = d["ufo"]
+    dev = config.device
+
+    def one(v, dtype=I32):
+        return torch.as_tensor(np.asarray(v), device=dev).to(dtype)[None]
+
+    def counter(v):
+        return -1 if v is None else v
+
+    return State(
+        score=one(d["score"]),
+        lives=one(d["lives"]),
+        level=one(d.get("level", d.get("levels_completed", 0))),
+        rng=one(rng.from_u64_pair(d["rand"]["state"]), I64),
+        life_display_timer=one(d["life_display_timer"]),
+        enemy_shot_delay=one(d["enemy_shot_delay"]),
+        shot_timer=one(50),
+        ship_x=one(ship["x"]), ship_y=one(ship["y"]),
+        ship_alive=one(bool(ship["alive"]), BOOL),
+        ship_death_counter=one(counter(ship.get("death_counter"))),
+        ship_death_hit_1=one(bool(ship.get("death_hit_1", False)), BOOL),
+        ship_laser_alive=one(sl is not None, BOOL),
+        ship_laser_x=one(sl["x"] if sl else 0),
+        ship_laser_y=one(sl["y"] if sl else 0),
+        ship_laser_t=one(sl["t"] if sl else 0),
+        elaser_alive=one(lasers[0] > 0, BOOL),
+        elaser_x=one(lasers[1]), elaser_y=one(lasers[2]),
+        elaser_t=one(lasers[3]),
+        enemy_x=one(ex), enemy_y=one(ey),
+        enemy_alive=one(alive, BOOL), enemy_death_counter=one(dc),
+        move_counter=one(mv["move_counter"]),
+        move_dir=one(_DIR_NAMES.index(mv["move_dir"])),
+        visual_orientation=one(bool(mv["visual_orientation"]), BOOL),
+        shield_alpha=one(sa, BOOL),
+        ufo_x=one(ufo["x"]), ufo_y=one(ufo["y"]),
+        ufo_appearance_counter=one(ufo["appearance_counter"]),
+        ufo_death_counter=one(counter(ufo.get("death_counter"))),
+    )
+
+
+def schema() -> dict:
+    return {
+        "type": "object",
+        "required": ["score", "lives", "level", "rand", "ship", "ship_laser",
+                     "shields", "enemies", "enemies_movement", "enemy_lasers",
+                     "enemy_shot_delay", "ufo", "life_display_timer"],
+    }
+
+
+def query(config: Config, s: State, name: str, args=None, i: int = 0):
+    """The native queries (``space_invaders_<name>`` on the facade's
+    state) of env ``i``."""
+    if name == "shield_cell_count":
+        return int(s.shield_alpha[i].sum())
+    if name == "enemies_remaining":
+        return int(s.enemy_alive[i].sum())
+    if name == "ship_x":
+        return int(s.ship_x[i])
+    raise ValueError(f"unknown space_invaders query: {name}")

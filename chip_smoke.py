@@ -58,10 +58,25 @@ Phases, each printing one line per game with its own wall time:
      at most GATE_MAX_FRAMES frames), the launch counts set to 0 just
      before and read just after: the game's frame kernels must have
      launched and every score must be finite (pass/fail at this depth is
-     printed, not required).
+     printed, not required);
+ 13. heads (a main path, the serve of every committed model): each of
+     the 37 checkpoints in models/ loaded strictly into its eval head
+     (``rl.eval_adapter``) on the card and on the cpu, both fed one uint8
+     batch (N = HEADS_N, numpy seed 0): logits and value or Q within
+     HEADS_ATOL of the cpu's (scaled by the output's largest magnitude
+     above 1), and for recurrent heads also the carry over HEADS_T steps
+     with envs done at t = HEADS_DONE_AT; then one serve chunk (the
+     regress entry point, HEADS_GAMES envs x HEADS_STEPS agent steps) with
+     the launch counts set to 0 just before and read just after: the
+     game's single and fused kernels must have launched; the mean raw
+     score so far is printed. Then the single-env adapter
+     (``make_tb_policy``) on the card's facade against the cpu's, one
+     model a game: the same stacks within 1 grey level, its frames from
+     the single-frame kernel.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
-phase, ``gate_launches`` from phase 12), the total time, and as the last line
+phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
+phase 13's serve chunks), the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -92,6 +107,9 @@ from toybox_tpu_torch.ops import obs, render_amidar, render_cuda, render_si
 from toybox_tpu_torch.regress import full_f32, play_games
 from toybox_tpu_torch.rl import ppo
 from toybox_tpu_torch.rl.checkpoint import load_state_dict
+from toybox_tpu_torch.rl.eval_adapter import (checkpoint_head, eval_head,
+                                              make_tb_policy)
+from toybox_tpu_torch.rl.models import RECURRENT_NETWORKS
 from toybox_tpu_torch.rl.policies import build_eval_policy, build_policy
 from toybox_tpu_torch.rl.test_envs import make_discrete_identity_env
 from toybox_tpu_torch.sample_tests import get_scenarios
@@ -117,6 +135,8 @@ PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
 PROFILE_STEPS = 10
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
 GATE_EPISODES, GATE_MAX_FRAMES = 2, 1000
+HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
+HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 64, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
 DEV = "cuda"
 PALLAS = "toybox_tpu/ops/render_pallas.py"
@@ -1124,6 +1144,105 @@ def behavior_phase(g: Game, state_dict):
     return mine, detail
 
 
+def _max_diff(got, want) -> tuple:
+    """(max |got - want|, max |want|) over tensors or tuples of them."""
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    return err, max(float(w.abs().max()) for w in want)
+
+
+def head_phase(path: Path, game: Game):
+    """One checkpoint: its head on the card against the cpu's on one
+    batch (recurrent: HEADS_T steps, envs done at t = HEADS_DONE_AT), then
+    one serve chunk with the launch counts set to 0 just before and read
+    just after. Returns (launches, detail)."""
+    alg, network = checkpoint_head(path.name)
+    sd = load_state_dict(path)
+    heads = {}
+    for d in (DEV, "cpu"):
+        heads[d] = eval_head(alg, network, game.name, device=d)[0]
+        heads[d].load_state_dict(sd)
+    r = np.random.default_rng(0)
+    recurrent = network in RECURRENT_NETWORKS
+    steps = HEADS_T if recurrent else 1
+    err, scale = 0.0, 0.0
+    carry = {d: heads[d].initial_carry(HEADS_N) for d in heads} \
+        if recurrent else {}
+    for t in range(steps):
+        obs = torch.as_tensor(r.integers(0, 256, (HEADS_N, 84, 84, 4),
+                                         dtype=np.uint8))
+        out = {}
+        with torch.no_grad():
+            for d, m in heads.items():
+                if recurrent:
+                    done_t = ((torch.arange(HEADS_N) % 2 == 0)
+                              & (t == HEADS_DONE_AT))
+                    out[d] = m(obs.to(d), carry[d], done_t.to(d))
+                    carry[d] = out[d][2]
+                    out[d] = out[d][:2] + tuple(carry[d])
+                else:
+                    out[d] = m(obs.to(d))
+        e, sc = _max_diff(out[DEV], out["cpu"])
+        err, scale = max(err, e), max(scale, sc)
+    tol = HEADS_ATOL * max(1.0, scale)
+    check(err <= tol, f"{path.name}: the head on the card differs from the "
+                      f"cpu's by {err} (tolerance {tol})")
+    _reset_launches()
+    t0 = time.perf_counter()
+    scores = play_games(game.name, sd, network, HEADS_GAMES, alg=alg,
+                        chunk=HEADS_STEPS, device=DEV,
+                        max_frames=4 * HEADS_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(render_cuda.LAUNCHES)
+    mine = {k: launches[k] for k in (game.kernel, game.kernel + "_fused")}
+    check(all(v > 0 for v in mine.values()),
+          f"a {game.name} frame kernel did not launch in {path.name}'s "
+          f"serve chunk: {launches}")
+    check(np.isfinite(scores).all(), f"{path.name} scored {scores}")
+    detail = (f"{path.name} ({alg}/{network}): card vs cpu max diff "
+              f"{err:.2e} (outputs up to {scale:.3g}, tolerance {tol:.2e}"
+              f"{f', {steps} steps' if recurrent else ''}); serve chunk "
+              f"{HEADS_GAMES} x {HEADS_STEPS} agent steps in {dt:.2f} s, "
+              f"mean raw score so far {float(scores.mean()):.2f}, launches "
+              + ", ".join(f"{k} {v}" for k, v in mine.items()))
+    return mine, detail
+
+
+def adapter_phase(path: Path, game: Game) -> str:
+    """``make_tb_policy`` on the card's facade and on the cpu's, the same
+    action script: equal frame counts, stacks within 1 grey level, and the
+    single-frame kernel launched on the card."""
+    from toybox_tpu_torch import Toybox
+
+    alg, network = checkpoint_head(path.name)
+    sd = load_state_dict(path)
+    fns = {d: make_tb_policy(alg, network, sd, game.name, device=d)
+           for d in (DEV, "cpu")}
+    tbs = {d: Toybox(game.name, seed=0, device=d) for d in fns}
+    script = np.random.default_rng(4).choice(
+        np.asarray(game.module.LEGAL_ACTIONS), ADAPTER_FRAMES)
+    _reset_launches()
+    worst = 0
+    for i, a in enumerate(script):
+        for d, fn in fns.items():
+            fn(tbs[d])
+            tbs[d].apply_ale_action(int(a))
+        if i % 4 == 0:
+            worst = max(worst, int((fns[DEV].state["stack"].cpu().int()
+                                    - fns["cpu"].state["stack"].int())
+                                   .abs().max()))
+    single = render_cuda.LAUNCHES[game.kernel]
+    check(worst <= 1, f"{path.name} adapter stacks differ by {worst}")
+    check(single > 0, f"the {game.kernel} kernel did not launch in the "
+                      "adapter")
+    check(tbs[DEV].to_state_json() == tbs["cpu"].to_state_json(),
+          f"{game.name} facade states differ between the card and the cpu")
+    return (f"adapter {path.name}: {ADAPTER_FRAMES} frames, stacks max diff "
+            f"{worst}, {single} single-frame launches")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1233,6 +1352,22 @@ def main() -> int:
         gate_launches.update(mine)
         phase(12, "behavior", t0, detail)
 
+    # 13. heads: every committed checkpoint's eval head and serve chunk
+    heads_launches = {}
+    by_prefix = {g.model.split(".")[0]: g for g in GAMES}
+    t13 = time.perf_counter()
+    for path in sorted(MODELS.glob("*.model")):
+        t0 = time.perf_counter()
+        mine, detail = head_phase(path, by_prefix[path.name.split(".")[0]])
+        for k, v in mine.items():
+            heads_launches[k] = heads_launches.get(k, 0) + v
+        phase(13, "heads", t0, detail)
+    for g, suffix in zip(GAMES, ("a2c", "acer", "deepq")):
+        t0 = time.perf_counter()
+        phase(13, "heads", t0, adapter_phase(
+            MODELS / f"{g.model.split('.')[0]}.{suffix}.model", g))
+    phase(13, "heads", t13, "all heads")
+
     kernels = []
     for g in GAMES:
         for name, line in zip((g.kernel, g.kernel + "_fused",
@@ -1244,6 +1379,7 @@ def main() -> int:
                 source=f"toybox_tpu_torch/csrc/{g.kernel}.cu",
                 replaces=f"{PALLAS}:{line}", launches=launches[name],
                 gate_launches=gate_launches.get(name, 0),
+                heads_launches=heads_launches.get(name, 0),
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],

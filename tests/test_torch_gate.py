@@ -267,12 +267,26 @@ def test_cli_gates_ppo_and_refuses_what_is_not_ported(capsys):
     assert e.value.code == 1        # too short to pass the checks
     out = capsys.readouterr().out
     assert "FAIL NoShields" in out and "BEHAVIORAL REGRESSION" in out
-    with pytest.raises(NotImplementedError, match="a2c"):
-        cli_main(["breakout", "--family=a2c", "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        runner.play_batched("breakout", None, None, state_dict=None,
-                            alg="ppo", network="cnn_lstm", n_episodes=1,
-                            device="cpu")
+    # every family gates now (a2c at this depth fails its checks), and a
+    # recurrent network plays; what the port does not know raises
+    with pytest.raises(SystemExit) as e:
+        cli_main(["breakout", "--family=a2c", "--device=cpu",
+                  "--episodes=1", "--max-frames=40"])
+    assert e.value.code == 1
+    assert "FAIL EZChannel" in capsys.readouterr().out
+    scores = runner.play_batched("breakout", None, None, state_dict=None,
+                                 alg="ppo", network="cnn_lstm",
+                                 n_episodes=1, device="cpu", chunk=4,
+                                 max_frames=16)
+    assert np.isfinite(scores).all()
+    with pytest.raises(ValueError, match="unknown family"):
+        cli_main(["breakout", "--family=nope", "--device=cpu"])
+    with pytest.raises(ValueError, match="unknown alg 'nope'.*a2c"):
+        cli_main(["breakout", "--alg=nope", "--device=cpu",
+                  "--load_path=models/Breakout.a2c.model"])
+    with pytest.raises(ValueError, match="unknown network.*cnn_small"):
+        cli_main(["breakout", "--alg=a2c", "--network=nope",
+                  "--device=cpu", "--load_path=models/Breakout.a2c.model"])
     cli_main(["breakout", "--device=cpu", "--episodes=1",
               "--max-frames=20"])
     assert "SMOKE EZChannel" in capsys.readouterr().out

@@ -50,7 +50,8 @@ def _port_files():
     files = sorted((ROOT / "toybox_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "port_op_counts.py",
-                    ROOT / "scripts" / "frame_kernel_variants.py"]
+                    ROOT / "scripts" / "frame_kernel_variants.py",
+                    ROOT / "scripts" / "port_gates.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,10 +1,19 @@
-"""Policy trunks (port of toybox_tpu.rl.models: ``NatureCNN`` and ``MLP``,
-in a name registry as the JAX package keeps them).
+"""Policy trunks (port of toybox_tpu.rl.models: ``NatureCNN``,
+``SmallCNN``, ``ConvOnly``, ``MLP`` and ``LSTMTrunk``, in a name registry
+as the JAX package keeps them).
 
 Each trunk takes the observation as the JAX package lays it out (NHWC
 images, flat vectors) and returns f32[N, latent]. Convolutions run in
-NCHW, PyTorch's layout: NatureCNN turns the NHWC observation view back
-into the channel-first stack it came from.
+NCHW, PyTorch's layout: the convolutional trunks turn the NHWC
+observation view back into the channel-first stack it came from, and
+flatten their feature maps as (c, h, w) where flax flattens (h, w, c)
+(``rl/checkpoint.py`` reorders the Dense rows that read them).
+
+The ``dtype`` network kwarg (a torch dtype or its name, e.g.
+``"bfloat16"``) computes a trunk in that dtype over f32 parameters, as
+flax's ``dtype=`` does; the trunk's output is f32. Recurrent trunks
+(``cnn_lstm``, ``cnn_lnlstm``, ``lstm``) take ``(obs, carry, done)`` and
+return ``(latent, new_carry)``.
 """
 
 from __future__ import annotations
@@ -12,6 +21,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -19,35 +29,94 @@ def _conv_out(size: int, kernel: int, stride: int) -> int:
     return (size - kernel) // stride + 1
 
 
-def _norm_obs(x: torch.Tensor) -> torch.Tensor:
+def _norm_obs(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 255.0
-    return x.to(torch.float32)
+        return x.to(dtype) / 255.0
+    return x.to(dtype)
 
 
-class NatureCNN(nn.Module):
+def _apply(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A Conv2d or Linear in the dtype of ``x``: its f32 parameters are
+    cast to it first, as flax promotes them to the module's dtype."""
+    if x.dtype == layer.weight.dtype:
+        return layer(x)
+    w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+    if isinstance(layer, nn.Conv2d):
+        return F.conv2d(x, w, b, layer.stride)
+    return F.linear(x, w, b)
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from itself or its name (``"bfloat16"``)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"not a torch dtype: {dtype!r}")
+    return dtype
+
+
+class ConvStack(nn.Module):
+    """VALID convolutions with relu over uint8 NHWC [N, H, W, C], then,
+    with ``hidden``, a Dense layer with relu: the shared body of NatureCNN
+    (``convs`` the Mnih et al. three, hidden 512), SmallCNN (two, hidden
+    128) and ConvOnly (the three, flattened, no Dense)."""
+
+    def __init__(self, convs, in_channels: int, height: int, width: int,
+                 hidden: int | None, dtype=torch.float32):
+        super().__init__()
+        self.dtype = as_dtype(dtype)
+        h, w, c = height, width, in_channels
+        for i, (ch, k, s) in enumerate(convs):
+            setattr(self, f"conv{i}", nn.Conv2d(c, ch, k, stride=s))
+            h, w, c = _conv_out(h, k, s), _conv_out(w, k, s), ch
+        self.n_convs = len(convs)
+        self.out_chw = (c, h, w)
+        flat = c * h * w
+        if hidden is not None:
+            self.fc = nn.Linear(flat, hidden)
+        self.latent = flat if hidden is None else hidden
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _norm_obs(x.permute(0, 3, 1, 2), self.dtype)
+        for i in range(self.n_convs):
+            x = torch.relu(_apply(getattr(self, f"conv{i}"), x))
+        x = x.flatten(1)
+        if hasattr(self, "fc"):
+            x = torch.relu(_apply(self.fc, x))
+        return x.to(torch.float32)
+
+
+NATURE_CONVS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+SMALL_CONVS = ((8, 8, 4), (16, 4, 2))
+
+
+class NatureCNN(ConvStack):
     """The Mnih et al. DQN/A3C trunk: uint8 NHWC [N, H, W, C] ->
     f32[N, 512]."""
 
     def __init__(self, in_channels: int = 4, height: int = 84,
-                 width: int = 84):
-        super().__init__()
-        self.conv0 = nn.Conv2d(in_channels, 32, 8, stride=4)
-        self.conv1 = nn.Conv2d(32, 64, 4, stride=2)
-        self.conv2 = nn.Conv2d(64, 64, 3, stride=1)
-        h, w = height, width
-        for k, s in ((8, 4), (4, 2), (3, 1)):
-            h, w = _conv_out(h, k, s), _conv_out(w, k, s)
-        self.out_hw = (h, w)
-        self.fc = nn.Linear(64 * h * w, 512)
-        self.latent = 512
+                 width: int = 84, dtype=torch.float32):
+        super().__init__(NATURE_CONVS, in_channels, height, width, 512,
+                         dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _norm_obs(x.permute(0, 3, 1, 2))
-        x = torch.relu(self.conv0(x))
-        x = torch.relu(self.conv1(x))
-        x = torch.relu(self.conv2(x))
-        return torch.relu(self.fc(x.flatten(1)))
+
+class SmallCNN(ConvStack):
+    """The reference cnn_small: 8x8/4 -> 8, 4x4/2 -> 16, Dense 128."""
+
+    def __init__(self, in_channels: int = 4, height: int = 84,
+                 width: int = 84, dtype=torch.float32):
+        super().__init__(SMALL_CONVS, in_channels, height, width, 128,
+                         dtype)
+
+
+class ConvOnly(ConvStack):
+    """The reference conv_only (deepq's trunk): NatureCNN's convolutions,
+    flattened, no Dense (f32[N, 3136] at 84x84)."""
+
+    def __init__(self, in_channels: int = 4, height: int = 84,
+                 width: int = 84, dtype=torch.float32):
+        super().__init__(NATURE_CONVS, in_channels, height, width, None,
+                         dtype)
 
 
 class MLP(nn.Module):
@@ -55,30 +124,97 @@ class MLP(nn.Module):
     layers of ``num_hidden`` units with tanh."""
 
     def __init__(self, in_features: int, num_layers: int = 2,
-                 num_hidden: int = 64):
+                 num_hidden: int = 64, dtype=torch.float32):
         super().__init__()
+        self.dtype = as_dtype(dtype)
         sizes = [in_features] + [num_hidden] * num_layers
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
         self.latent = sizes[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _norm_obs(x).flatten(1)
+        x = _norm_obs(x, self.dtype).flatten(1)
         for layer in self.layers:
-            x = torch.tanh(layer(x))
-        return x
+            x = torch.tanh(_apply(layer, x))
+        return x.to(torch.float32)
 
 
-def _nature_cnn(obs_shape, **kwargs):
-    h, w, c = obs_shape
-    return NatureCNN(c, h, w, **kwargs)
+class LSTMCell(nn.Module):
+    """flax's ``OptimizedLSTMCell``: gates i, f, g, o; the input kernels
+    carry no bias, the hidden ones do. carry (c, h) -> (c', h'), with
+    c' = sigmoid(f) c + sigmoid(i) tanh(g) and h' = sigmoid(o) tanh(c')."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.ih = nn.Linear(in_features, 4 * hidden, bias=False)
+        self.hh = nn.Linear(hidden, 4 * hidden)
+
+    def forward(self, carry, x: torch.Tensor):
+        c, h = carry
+        i, f, g, o = (self.hh(h) + self.ih(x)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
+
+
+class LSTMTrunk(nn.Module):
+    """The reference lstm / cnn_lstm / cnn_lnlstm: a base trunk, with
+    ``layer_norm`` a LayerNorm (flax's: epsilon 1e-6) on its latent, then
+    an LSTM cell of ``nlstm`` units. The caller threads the carry: the
+    carry of every env whose ``done`` is set is zeroed before the cell."""
+
+    def __init__(self, base: nn.Module, nlstm: int = 128,
+                 layer_norm: bool = False):
+        super().__init__()
+        self.base = base
+        self.nlstm = nlstm
+        if layer_norm:
+            self.norm = nn.LayerNorm(base.latent, eps=1e-6)
+        self.cell = LSTMCell(base.latent, nlstm)
+        self.latent = nlstm
+
+    def initial_carry(self, n: int):
+        """(c, h), zeros f32[n, nlstm] on the trunk's device."""
+        dev = self.cell.hh.weight.device
+        return (torch.zeros(n, self.nlstm, device=dev),
+                torch.zeros(n, self.nlstm, device=dev))
+
+    def forward(self, x: torch.Tensor, carry, done: torch.Tensor):
+        latent = self.base(x)
+        if hasattr(self, "norm"):
+            latent = self.norm(latent)
+        mask = (1.0 - done.to(torch.float32))[:, None]
+        carry = self.cell(tuple(c * mask for c in carry), latent)
+        return carry[1], carry
+
+
+def _image(cls):
+    def build(obs_shape, **kwargs):
+        h, w, c = obs_shape
+        return cls(c, h, w, **kwargs)
+    return build
 
 
 def _mlp(obs_shape, **kwargs):
     return MLP(math.prod(obs_shape), **kwargs)
 
 
-NETWORKS = {"cnn": _nature_cnn, "mlp": _mlp}
+def _lstm(base, layer_norm=False):
+    def build(obs_shape, nlstm: int = 128, **kwargs):
+        return LSTMTrunk(base(obs_shape, **kwargs), nlstm, layer_norm)
+    return build
+
+
+NETWORKS = {
+    "cnn": _image(NatureCNN),
+    "nature_cnn": _image(NatureCNN),
+    "cnn_small": _image(SmallCNN),
+    "conv_only": _image(ConvOnly),
+    "mlp": _mlp,
+    "cnn_lstm": _lstm(_image(NatureCNN)),
+    "cnn_lnlstm": _lstm(_image(NatureCNN), layer_norm=True),
+    "lstm": _lstm(_mlp),
+}
+RECURRENT_NETWORKS = ("lstm", "cnn_lstm", "cnn_lnlstm")
 
 
 def network_factory(name: str):
@@ -87,9 +223,9 @@ def network_factory(name: str):
     try:
         return NETWORKS[name]
     except KeyError:
-        raise NotImplementedError(
-            f"network {name!r} is not ported yet; have "
-            f"{sorted(NETWORKS)}") from None
+        raise ValueError(
+            f"unknown network {name!r}; the port has {sorted(NETWORKS)} "
+            "(cnn_im2col and cnn_coutpad are not ported yet)") from None
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

@@ -1,31 +1,39 @@
-"""PolicyWithValue, a pi + V head over a trunk (port of
-toybox_tpu.rl.policies: the module, ``build_policy`` for training and the
-``ppo`` branch of ``build_eval_policy``)."""
+"""PolicyWithValue, a pi + V (or pi + Q) head over a trunk, and the eval
+heads of every algorithm's checkpoints (port of toybox_tpu.rl.policies:
+the module, ``build_policy`` for training, ``build_eval_policy`` and
+``build_recurrent_eval_policy``)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from toybox_tpu_torch.rl.distributions import make_pdtype
-from toybox_tpu_torch.rl.models import NETWORKS, network_factory, \
-    init_trunk
+from toybox_tpu_torch.rl.distributions import CategoricalPd, make_pdtype
+from toybox_tpu_torch.rl.models import NETWORKS, RECURRENT_NETWORKS, \
+    init_trunk, network_factory
 
-__all__ = ["NETWORKS", "PolicyWithValue", "build_policy",
-           "build_eval_policy"]
+__all__ = ["NETWORKS", "RECURRENT_NETWORKS", "EVAL_ALGS", "PolicyWithValue",
+           "build_policy", "build_eval_policy", "build_recurrent_eval_policy",
+           "build_eval_head"]
+
+#: the algorithms whose checkpoints an eval head loads (aliases included)
+EVAL_ALGS = ("ppo", "ppo2", "ppo1", "a2c", "trpo", "trpo_mpi", "gail",
+             "acer", "acktr", "deepq", "dqn")
 
 
 class PolicyWithValue(nn.Module):
     """obs [N, ...] (uint8 NHWC images or f32 vectors) -> (logits
-    [N, n_actions], value [N])."""
+    [N, n_actions], value [N]); with ``estimate_q`` the value head is a Q
+    head: value [N, n_actions]."""
 
     def __init__(self, trunk: nn.Module, n_pdparams: int,
-                 latent: int | None = None):
+                 latent: int | None = None, estimate_q: bool = False):
         super().__init__()
         self.trunk = trunk
         latent = trunk.latent if latent is None else latent
+        self.estimate_q = estimate_q
         self.pi = nn.Linear(latent, n_pdparams)
-        self.vf = nn.Linear(latent, 1)
+        self.vf = nn.Linear(latent, n_pdparams if estimate_q else 1)
         self.init_heads()
 
     def init_heads(self, generator: torch.Generator | None = None) -> None:
@@ -38,7 +46,13 @@ class PolicyWithValue(nn.Module):
 
     def forward(self, obs: torch.Tensor):
         latent = self.trunk(obs)
-        return self.pi(latent), self.vf(latent)[..., 0]
+        value = self.vf(latent)
+        return self.pi(latent), value if self.estimate_q else value[..., 0]
+
+
+def expected_q(logits: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """E_pi[Q] = sum softmax(logits) * Q: an acer head's state value."""
+    return (torch.softmax(logits, -1) * q).sum(-1)
 
 
 def build_policy(obs_shape, action_space, network: str = "cnn",
@@ -82,18 +96,136 @@ def build_policy(obs_shape, action_space, network: str = "cnn",
     return module, init_fn, step_fn, value_fn
 
 
-def build_eval_policy(alg: str, obs_shape, n_actions: int,
-                      network: str = "cnn", seed: int = 0, device="cuda"):
-    """(module, step_fn) able to load a ppo checkpoint for evaluation.
+def _check_alg(alg: str) -> None:
+    if alg not in EVAL_ALGS:
+        raise ValueError(f"unknown alg {alg!r}; the eval heads load "
+                         f"{', '.join(EVAL_ALGS)}")
 
-    step_fn(obs, generator) -> (actions, values, neglogps, logits), with
-    actions sampled from the categorical policy. The module is initialised
-    from ``seed``; load a checkpoint into it with ``load_state_dict``."""
-    if alg not in ("ppo", "ppo2"):
-        raise NotImplementedError(f"alg {alg!r} is not ported yet (ppo only)")
+
+def _eval_module(make, seed: int, device):
+    """The module ``make()`` builds on the CPU with torch's RNG seeded
+    from ``seed`` (a random policy for smoke runs; load a checkpoint into
+    it with ``load_state_dict``), moved to ``device`` in eval mode."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module, _, step_fn, _ = build_policy(obs_shape, n_actions, network,
-                                             device="cpu")
-    module.to(device).eval()
+        module = make()
+    return module.to(device).eval()
+
+
+def build_eval_policy(alg: str, obs_shape, n_actions: int,
+                      network: str = "cnn", seed: int = 0, device="cuda",
+                      **network_kwargs):
+    """(module, step_fn) able to load ``alg``'s feed-forward checkpoint:
+
+    - ppo/ppo2, ppo1, a2c, trpo/trpo_mpi, gail: PolicyWithValue (pi + V);
+    - acer: PolicyWithValue(estimate_q=True); the value is E_pi[Q];
+    - acktr: KfacCNNPolicy (``network`` is not read, as in JAX);
+    - deepq/dqn: the dueling QNetwork; actions are eps-greedy (eps 0.01
+      unless step_fn is given ``eps``), the value is max Q and the fourth
+      output is Q.
+
+    step_fn(obs, generator) -> (actions, values, neglogps, logits or Q),
+    without gradients, the draws from ``generator``."""
+    _check_alg(alg)
+    if network in RECURRENT_NETWORKS:
+        raise ValueError(f"{network!r} is recurrent: use "
+                         "build_recurrent_eval_policy")
+    shape = tuple(obs_shape)
+    if alg in ("deepq", "dqn"):
+        from toybox_tpu_torch.rl.dqn import QNetwork
+
+        module = _eval_module(lambda: QNetwork(
+            network_factory(network)(shape, **network_kwargs), n_actions),
+            seed, device)
+
+        @torch.no_grad()
+        def q_step(obs, generator, eps: float = 0.01):
+            q = module(obs)
+            greedy = q.argmax(-1)
+            rand = torch.randint(0, n_actions, greedy.shape,
+                                 generator=generator, device=q.device)
+            explore = torch.rand(greedy.shape, generator=generator,
+                                 device=q.device) < eps
+            actions = torch.where(explore, rand, greedy)
+            return actions, q.max(-1).values, torch.zeros_like(q[:, 0]), q
+
+        return module, q_step
+    if alg == "acktr":
+        from toybox_tpu_torch.rl.acktr import KfacCNNPolicy
+
+        module = _eval_module(lambda: KfacCNNPolicy(n_actions, shape),
+                              seed, device)
+    elif alg == "acer":
+        module = _eval_module(lambda: PolicyWithValue(
+            network_factory(network)(shape, **network_kwargs), n_actions,
+            estimate_q=True), seed, device)
+    else:
+        module = _eval_module(lambda: build_policy(
+            shape, n_actions, network, device="cpu", **network_kwargs)[0],
+            seed, device)
+
+    @torch.no_grad()
+    def step_fn(obs, generator):
+        logits, value = module(obs)
+        pd = CategoricalPd(logits)
+        actions = pd.sample(generator)
+        if value.ndim == 2:                     # acer: Q -> E_pi[Q]
+            value = expected_q(logits, value)
+        return actions, value, pd.neglogp(actions), logits
+
     return module, step_fn
+
+
+def build_recurrent_eval_policy(obs_shape, n_actions: int, network: str,
+                                nlstm: int = 128, alg: str = "ppo",
+                                seed: int = 0, device="cuda",
+                                **network_kwargs):
+    """(module, step_fn) able to load a recurrent checkpoint (ppo_lstm,
+    a2c_lstm, ppo_lnlstm: RecurrentPolicyWithValue; acer_lstm:
+    RecurrentQPolicy, whose value is E_pi[Q]).
+
+    step_fn(obs, generator, carry, prev_done) -> (actions, values,
+    neglogps, new_carry), without gradients: ``prev_done`` flags the envs
+    whose episode ended at the previous step (their carry restarts from
+    zero). ``module.initial_carry(n)`` is the first carry."""
+    _check_alg(alg)
+    if network not in RECURRENT_NETWORKS:
+        raise ValueError(f"{network!r} is not recurrent; have "
+                         f"{RECURRENT_NETWORKS}")
+    shape = tuple(obs_shape)
+
+    def make():
+        trunk = network_factory(network)(shape, nlstm=nlstm,
+                                         **network_kwargs)
+        if alg == "acer":
+            from toybox_tpu_torch.rl.acer import RecurrentQPolicy
+            return RecurrentQPolicy(trunk, n_actions)
+        from toybox_tpu_torch.rl.ppo_recurrent import \
+            RecurrentPolicyWithValue
+        return RecurrentPolicyWithValue(trunk, n_actions)
+
+    module = _eval_module(make, seed, device)
+
+    @torch.no_grad()
+    def step_fn(obs, generator, carry, prev_done):
+        logits, value, new_carry = module(obs, carry, prev_done)
+        pd = CategoricalPd(logits)
+        actions = pd.sample(generator)
+        if value.ndim == 2:                     # acer: Q -> E_pi[Q]
+            value = expected_q(logits, value)
+        return actions, value, pd.neglogp(actions), new_carry
+
+    return module, step_fn
+
+
+def build_eval_head(alg: str, obs_shape, n_actions: int, network: str,
+                    nlstm: int = 128, seed: int = 0, device="cuda"):
+    """(module, step_fn) of ``alg``'s eval head: the recurrent one
+    (``build_recurrent_eval_policy``) for a recurrent network, else
+    ``build_eval_policy``'s."""
+    if network in RECURRENT_NETWORKS:
+        return build_recurrent_eval_policy(obs_shape, n_actions, network,
+                                           nlstm=nlstm, alg=alg, seed=seed,
+                                           device=device)
+    return build_eval_policy(alg, obs_shape, n_actions, network, seed=seed,
+                             device=device)

@@ -32,11 +32,10 @@ from toybox_tpu_torch.regress import full_f32
 from toybox_tpu_torch.rl.checkpoint import (load_flax_tree, params_from_flax,
                                             params_to_flax, save_flax_tree)
 from toybox_tpu_torch.rl.distributions import pd_from_logits
-from toybox_tpu_torch.rl.policies import build_policy
+from toybox_tpu_torch.rl.policies import RECURRENT_NETWORKS, build_policy
 from toybox_tpu_torch.utils.checkpoint import Checkpointer
 
 F32 = torch.float32
-RECURRENT_NETWORKS = ("lstm", "cnn_lstm", "cnn_lnlstm")
 METRICS = ("policy_loss", "value_loss", "policy_entropy", "approxkl",
            "clipfrac")
 

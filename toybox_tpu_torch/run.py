@@ -1,5 +1,5 @@
 """Training CLI (port of toybox_tpu.run, the reference baselines/run.py
-surface), PPO only in this port so far:
+surface); of the learners, only PPO is ported so far:
 
     python -m toybox_tpu_torch.run --alg=ppo \
         --env=BreakoutToyboxNoFrameskip-v4 --num_timesteps=1e6 \
@@ -28,11 +28,37 @@ ALG_DEFAULTS = {
                 noptepochs=4, ent_coef=0.01, lr=2.5e-4, cliprange=0.1,
                 network="cnn"),
     "ppo2": "ppo",
+    # the other learners' network defaults (the JAX package's): the eval
+    # heads read them (regress, sample_tests); the rest of each alg's
+    # defaults comes with its learner
+    "a2c": dict(network="cnn"),
+    "deepq": dict(network="conv_only"),
+    "dqn": "deepq",
+    "trpo": dict(network="cnn_small"),
+    "trpo_mpi": "trpo",
+    "acer": dict(network="cnn_small"),
+    "acktr": dict(),
+    "ppo1": dict(network="cnn"),
+    "gail": dict(network="cnn_small"),
 }
-# the JAX package's other learners, still to port (ROADMAP.md §1, the
-# remaining learners)
-NOT_PORTED = ("a2c", "deepq", "dqn", "trpo", "trpo_mpi", "acer", "acktr",
-              "ppo1", "gail", "her", "ddpg")
+
+
+def alg_defaults(alg: str) -> dict:
+    """ALG_DEFAULTS of ``alg``, aliases resolved; ValueError naming the
+    algs for an unknown one."""
+    spec = ALG_DEFAULTS.get(alg)
+    if isinstance(spec, str):
+        spec = ALG_DEFAULTS[spec]
+    if spec is None:
+        raise ValueError(f"unknown alg {alg!r}; have "
+                         f"{', '.join(ALG_DEFAULTS)}")
+    return dict(spec)
+
+
+def default_network(alg: str) -> str:
+    """The network an alg's checkpoints use unless told otherwise."""
+    return alg_defaults(alg).get("network", "cnn")
+
 
 # --play: envs, chunks and agent steps per chunk
 PLAY_ENVS, PLAY_CHUNKS, PLAY_CHUNK = 8, 40, 64
@@ -75,17 +101,15 @@ def parse_cmdline_kwargs(args):
 
 def get_learn_function(alg: str):
     """(learn, default kwargs) of an algorithm."""
-    spec = ALG_DEFAULTS.get(alg)
-    if isinstance(spec, str):
-        alg = spec
-    if alg == "ppo":
+    if alg in ("ppo", "ppo2"):
         from toybox_tpu_torch.rl.ppo import learn
-        return learn, dict(ALG_DEFAULTS["ppo"])
-    if alg in NOT_PORTED:
-        raise NotImplementedError(
-            f"alg {alg!r} is not ported to toybox_tpu_torch yet "
-            "(ROADMAP.md §1: the remaining learners)")
-    raise ValueError(f"unknown alg {alg!r}")
+        return learn, alg_defaults(alg)
+    if alg not in ("her", "ddpg"):
+        alg_defaults(alg)                 # ValueError for an unknown alg
+    raise NotImplementedError(
+        f"alg {alg!r}: its learner is not ported to toybox_tpu_torch yet "
+        "(ROADMAP.md §1: the remaining learners); its checkpoints play "
+        "through regress and sample_tests")
 
 
 def train(args, extra_kwargs):

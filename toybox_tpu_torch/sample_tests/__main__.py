@@ -7,11 +7,12 @@ toybox_tpu.sample_tests.__main__).
 Two modes:
 
 - gate (``--family`` or ``--load_path`` given): every scenario played
-  batched with the trained checkpoint (read by ``rl/checkpoint.py``), each
-  scenario's ``check`` applied (against a control run of the same policy
-  on the unmodified game where it needs one); exits 1 if any scenario
-  fails. Only the ``ppo`` learner is ported: other families and recurrent
-  networks raise NotImplementedError.
+  batched with the trained checkpoint, loaded into its eval head
+  (``rl/eval_adapter.py`` ``load_eval_params``; any of the nine families,
+  recurrent networks included), each scenario's ``check`` applied
+  (against a control run of the same policy on the unmodified game where
+  it needs one); exits 1 if any scenario fails. ``--network`` defaults to
+  the family's, else to the alg's (``run.ALG_DEFAULTS``).
 - smoke (neither given): each scenario per frame through the facade with
   a uniform-random policy; reports scores and always exits 0.
 
@@ -25,7 +26,12 @@ import argparse
 import sys
 import time
 
-PORTED_ALGS = ("ppo", "ppo2")
+
+def _line(name: str, r: dict, gating: bool) -> str:
+    status = (("WAIVED" if gating else "SMOKE") if r["passed"] is None
+              else "PASS" if r["passed"] else "FAIL")
+    ctrl = f" control={r['control']}" if r["control"] is not None else ""
+    return f"{status} {name}: scores={r['scores']}{ctrl}"
 
 
 def main(argv=None):
@@ -54,6 +60,9 @@ def main(argv=None):
                                                             model_path,
                                                             overrides_for)
 
+        if args.family not in FAMILIES:
+            raise ValueError(f"unknown family {args.family!r}; have "
+                             f"{', '.join(FAMILIES)}")
         spec = FAMILIES[args.family]
         args.alg = spec["alg"]
         args.network = args.network or spec["network"]
@@ -64,23 +73,23 @@ def main(argv=None):
     gating = args.load_path is not None
     t0 = time.perf_counter()
     if gating:
-        if args.alg not in PORTED_ALGS:
-            raise NotImplementedError(
-                f"alg {args.alg!r} (family {args.family!r}): its learner is "
-                "not ported yet; the port gates the ppo family")
         from toybox_tpu_torch.regress import full_f32
-        from toybox_tpu_torch.rl.checkpoint import load_state_dict
+        from toybox_tpu_torch.rl.eval_adapter import load_eval_params
+        from toybox_tpu_torch.run import default_network
         from toybox_tpu_torch.sample_tests.runner import run_all_gated
 
         full_f32()
-        state_dict = load_state_dict(args.load_path)
+        network = args.network or default_network(args.alg)
+        state_dict = load_eval_params(args.alg, network, args.load_path,
+                                      args.game, args.device).state_dict()
 
         def report(name, r):
-            print(f"  {name}: {r['seconds']:.1f} s", flush=True)
+            print(f"  {_line(name, r, gating)} ({r['seconds']:.1f} s)",
+                  flush=True)
 
         results = run_all_gated(
             args.game, state_dict=state_dict, alg=args.alg,
-            network=args.network or "cnn", episodes=args.episodes,
+            network=network, episodes=args.episodes,
             seed=args.seed, max_frames=args.max_frames, overrides=overrides,
             device=args.device, on_result=report)
     else:
@@ -90,11 +99,7 @@ def main(argv=None):
                           max_frames=args.max_frames, device=args.device)
     failed = []
     for name, r in results.items():
-        status = (("WAIVED" if gating else "SMOKE") if r["passed"] is None
-                  else "PASS" if r["passed"] else "FAIL")
-        ctrl = (f" control={r['control']}" if r["control"] is not None
-                else "")
-        print(f"{status} {name}: scores={r['scores']}{ctrl}")
+        print(_line(name, r, gating))
         if r["passed"] is False:
             failed.append(name)
     where = args.device

@@ -20,8 +20,6 @@ import time
 
 import torch
 
-RECURRENT_NETWORKS = ("lstm", "cnn_lstm", "cnn_lnlstm")
-
 
 def capture_setup(scenario, device="cuda"):
     """Run the scenario's intervention on one facade handle and capture the
@@ -40,22 +38,19 @@ def play_batched(game: str, cfg_js, st_js, *, state_dict, alg: str,
     """Play n_episodes in parallel from an injected (config, state) set-up
     (None for the game's default); returns the raw (uncapped, unclipped)
     episode scores, numpy f32. ``state_dict=None`` plays a randomly
-    initialised policy (smoke)."""
+    initialised policy (smoke); else it is loaded strictly into the eval
+    head of ``alg``/``network``. Recurrent networks thread the LSTM carry,
+    restarting it for the envs whose previous step ended an episode."""
     from toybox_tpu_torch.envs.pipeline import make_rl_env
     from toybox_tpu_torch.games import get_game
-    from toybox_tpu_torch.rl.policies import build_eval_policy
+    from toybox_tpu_torch.regress import eval_policy
 
-    if network in RECURRENT_NETWORKS:
-        raise NotImplementedError(
-            f"recurrent network {network!r}: the port has no recurrent "
-            "policy yet")
     module = get_game(game)
     cfg = (module.config_from_json(cfg_js, device) if cfg_js is not None
            else module.default_config(device))
     env = make_rl_env(game, n_episodes, config=cfg, episodic_life=False,
                       clip_rewards=False, device=device)
-    net, p_step = build_eval_policy(alg, env.obs_shape, env.num_actions,
-                                    network, seed=seed, device=device)
+    net, step, carry = eval_policy(alg, network, env, seed, device)
     if state_dict is not None:
         net.load_state_dict(state_dict)
     dev = torch.device(device)
@@ -70,10 +65,11 @@ def play_batched(game: str, cfg_js, st_js, *, state_dict, alg: str,
         st, _ = env.reset(seeds)
     totals = torch.zeros(n_episodes, dtype=torch.float32, device=dev)
     finished = torch.zeros(n_episodes, dtype=torch.bool, device=dev)
+    done = torch.zeros(n_episodes, dtype=torch.bool, device=dev)
     n_chunks = max(max_frames // env.frames_per_step // chunk, 1)
     for _ in range(n_chunks):
         for _ in range(chunk):
-            actions, _, _, _ = p_step(st.frames, gen)
+            actions, carry = step(st.frames, gen, carry, done)
             st, _, _, done, info = env.step(st, actions)
             totals = torch.where(finished, totals,
                                  totals + info["raw_reward"])

@@ -51,9 +51,9 @@ Phases, each printing one line per game with its own wall time:
      behavioral scenario's set-up captured on the card (config and state
      JSON equal to the same capture on the CPU), N = 10 and 256 envs
      started from it by ``reset_to`` and played at random, the single
-     and fused frame kernels exactly equal to their plain versions on
-     those states (no shields, moved shields, 0 and 1 enemies, one
-     brick, a channel, one serve position); then ``run_all_gated`` with
+     and fused frame kernels and the warp form exactly equal to their
+     plain versions on those states (no shields, moved shields, 0 and 1
+     enemies, one brick, a channel, one serve position); then ``run_all_gated`` with
      the committed ppo models, cut in depth (GATE_EPISODES episodes of
      at most GATE_MAX_FRAMES frames), the launch counts set to 0 just
      before and read just after: the game's frame kernels must have
@@ -1062,14 +1062,18 @@ def cli_phase() -> str:
             f"back equal; progress.csv {len(rows) - 1} rows")
 
 
-def _kernels_exact(g: Game, cfg, consts, s1, s2, where: str) -> None:
-    """The single kernel on s1 and the fused one on (s1, s2) exactly equal
-    to their plain versions."""
+def _kernels_exact(g: Game, cfg, consts, tables, s1, s2,
+                   where: str) -> None:
+    """The single kernel on s1, the fused one on (s1, s2) and its warp form
+    with `tables` exactly equal to their plain versions."""
     p1, p2 = g.prep(cfg, s1), g.prep(cfg, s2)
-    for name, prep in ((g.kernel, p1[:, None]),
-                       (g.kernel + "_fused", torch.stack([p1, p2], 1))):
-        got = g.ops.render_frames(prep, consts)
-        want = g.ops.frame_plain(prep, consts)
+    pair = torch.stack([p1, p2], 1)
+    for name, prep, tab in ((g.kernel, p1[:, None], None),
+                            (g.kernel + "_fused", pair, None),
+                            (g.kernel + "_fused_warp", pair, tables)):
+        got = g.ops.render_frames(prep, consts, tab)
+        want = (g.ops.frame_plain(prep, consts) if tab is None
+                else g.ops.frame_warp_plain(prep, consts, tab))
         diff = int((got.int() - want.int()).abs().max())
         check(diff == 0, f"{name} differs from its plain version by {diff} "
                          f"{where}")
@@ -1078,12 +1082,13 @@ def _kernels_exact(g: Game, cfg, consts, s1, s2, where: str) -> None:
 def behavior_phase(g: Game, state_dict):
     """The gate path of the intervention API. Each scenario's set-up is
     captured on the card and on the cpu (equal JSON); N envs start from it
-    by reset_to and play at random, and the single and fused kernels are
-    held exactly to their plain versions on those states at the start and
-    after BEHAVIOR_FRAMES frames. Then run_all_gated with the committed
+    by reset_to and play at random, and the single and fused kernels and
+    the warp form are held exactly to their plain versions on those states
+    at the start and after BEHAVIOR_FRAMES frames. Then run_all_gated with the committed
     ppo model, cut in depth, the launch counts set to 0 just before and
     read just after. Returns (launches, detail)."""
     r = np.random.default_rng(9)
+    tables = obs.warp_tables(g.module.HEIGHT, g.module.WIDTH, WARP, DEV)
     checked = []
     for cls in get_scenarios(g.name):
         setup = capture_setup(cls(seed=0), device=DEV)
@@ -1105,9 +1110,9 @@ def behavior_phase(g: Game, state_dict):
                                     device=DEV)
                 st = env.step(st, a)[0]
                 if i == 0:
-                    _kernels_exact(g, cfg, consts, start, st.game,
+                    _kernels_exact(g, cfg, consts, tables, start, st.game,
                                    f"at the start of {cls.__name__}, N={n}")
-            _kernels_exact(g, cfg, consts, prev, st.game,
+            _kernels_exact(g, cfg, consts, tables, prev, st.game,
                            f"after {BEHAVIOR_FRAMES} frames of "
                            f"{cls.__name__}, N={n}")
         torch.cuda.synchronize()

@@ -20,12 +20,13 @@ C entry point on chip_smoke.py's random-play states:
     its composition);
   - "first frame only": the fused form composes only the first frame (the
     cost of the second frame's composition and the byte max);
-  - "or for max" (SI, Amidar): the fused form ORs the two frames' words
-    instead of their byte max (the cost of __vmaxu4);
-  - for Breakout's warp entry, "compose only": the warp stage composes the
-    frame into its stage but skips the contraction (one XOR a word keeps
-    the composition alive), and "warp only": the frame is the background
-    word, the contraction runs in full.
+  - "or for max": the fused form ORs the two frames' words instead of
+    their byte max (the cost of __vmaxu4);
+  - for the warp entry, "compose only": the warp stage composes the frame
+    but skips the contraction (one XOR a word keeps the composition
+    alive), and "warp only": the frame is the background word, the
+    contraction runs in full. "compose only" applies to older trees too
+    (--csrc), whose stage held a whole frame.
 Prints, for each, the kernel's own device time (torch.profiler, 50
 launches) at N = 1024, 256 and 10 (single and fused for the frame entry,
 the fused warp for the warp entry), and whether the output equals the
@@ -55,63 +56,69 @@ OUT = ROOT / "build" / "variants"
 ENVS = (1024, 256, 10)
 CSRC = render_cuda.CSRC
 
-_NO_SECOND = ("    if (fused) {\n      uint32_t v[4];",
-              "    if (false) {\n      uint32_t v[4];")
-_OR_FOR_MAX = ("for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);",
-               "for (int k = 0; k < 4; ++k) w[k] |= v[k];")
-# Breakout's frame_chunk, which both of its entries compose through
-_BK_FIRST = ("  compose_chunk(tb, 0, y, bits & 0x1Fu, chunk, c, w);\n"
-             "  if (fused) {")
-_BK_NO_SECOND = ("breakout_frame.cu", _BK_FIRST,
-                 _BK_FIRST.replace("if (fused)", "if (false)"))
+# The warp stage composes its rows but skips the contraction (one XOR a
+# word keeps the composition alive): the same text in every tree since the
+# stage was shared
+_COMPOSE_ONLY = [
+    ("warp84.cuh", "  float4* t = s.t[wp];\n",
+     "  float4* t = s.t[wp];\n  uint32_t sink = 0;\n"),
+    ("warp84.cuh",
+     "        for (int b = 0; b < 4; ++b) {\n"
+     "          const float v = byte_float(word, b);",
+     "        sink ^= word;\n"
+     "        for (int b = 0; b < 0; ++b) {\n"
+     "          const float v = byte_float(word, b);"),
+    ("warp84.cuh", "      if (y != last) continue;",
+     "      if (y != last || sink != 1u) continue;")]
+
+
+def _chunk_variants(kernel: str, background: str, warp_call: str,
+                    frames: tuple) -> dict:
+    """The variants of a kernel whose `frame_chunk` (which both of its
+    entries compose through) composes its frames from the text
+    frames[0]; frames[1] and frames[2] replace it to compose no frame and
+    only the first. `background` is the kernel's background word and
+    `warp_call` the warp entry's call of frame_chunk."""
+    src = f"{kernel}.cu"
+    fill = f"for (int k = 0; k < 4; ++k) w[k] = {background};"
+    return {
+        (kernel, "as is"): ("frame", []),
+        (kernel, "store only"): ("frame", [
+            (src, frames[0], f"  {fill}\n{frames[1]}")]),
+        (kernel, "first frame only"): ("frame", [
+            (src, frames[0], frames[2])]),
+        (kernel, "or for max"): ("frame", [
+            (src, "for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);",
+             "for (int k = 0; k < 4; ++k) w[k] |= v[k];")]),
+        (kernel, "warp as is"): ("warp", []),
+        (kernel, "compose only"): ("warp", _COMPOSE_ONLY),
+        (kernel, "warp only"): ("warp", [(src, warp_call, fill)]),
+    }
+
+
+def _fused(first: str) -> tuple:
+    """The frames texts of a frame_chunk that composes frame 0 by the call
+    `first`, then frame 1 if fused."""
+    return (f"  {first}\n  if (fused) {{", "  if (false) {",
+            f"  {first}\n  if (false) {{")
+
 
 # (kernel, variant) -> (entry: "frame" or "warp", [(file, text in it, its
 # replacement)])
 VARIANTS = {
-    ("breakout_frame", "as is"): ("frame", []),
-    ("breakout_frame", "store only"): ("frame", [
-        ("breakout_frame.cu", _BK_FIRST,
-         "  for (int k = 0; k < 4; ++k) w[k] = c.bg;\n  if (false) {")]),
-    ("breakout_frame", "first frame only"): ("frame", [_BK_NO_SECOND]),
-    ("breakout_frame", "warp as is"): ("warp", []),
-    ("breakout_frame", "compose only"): ("warp", [
-        ("warp84.cuh", "  float4* t = s.t[wp];\n",
-         "  float4* t = s.t[wp];\n  uint32_t sink = 0;\n"),
-        ("warp84.cuh",
-         "        for (int b = 0; b < 4; ++b) {\n"
-         "          const float v = byte_float(word, b);",
-         "        sink ^= word;\n"
-         "        for (int b = 0; b < 0; ++b) {\n"
-         "          const float v = byte_float(word, b);"),
-        ("warp84.cuh", "      if (y != last) continue;",
-         "      if (y != last || sink != 1u) continue;")]),
-    ("breakout_frame", "warp only"): ("warp", [
-        ("breakout_frame.cu",
-         "                  frame_chunk(tables, 0, y, chunk, true, c, w);",
-         "                  for (int k = 0; k < 4; ++k) w[k] = c.bg;")]),
-    ("si_frame", "as is"): ("frame", []),
-    ("si_frame", "store only"): ("frame", [
-        ("si_frame.cu",
-         "    compose_chunk(fr[0].row[r], x0, fr[0], c, w);",
-         "    for (int k = 0; k < 4; ++k) w[k] = c.word[kBg];"),
-        ("si_frame.cu", *_NO_SECOND)]),
-    ("si_frame", "first frame only"): ("frame", [
-        ("si_frame.cu", *_NO_SECOND)]),
-    ("si_frame", "or for max"): ("frame", [("si_frame.cu", *_OR_FOR_MAX)]),
-    ("si_frame", "warp as is"): ("warp", []),
-    ("amidar_frame", "as is"): ("frame", []),
-    ("amidar_frame", "store only"): ("frame", [
-        ("amidar_frame.cu",
-         "    for (int f = 0; f < frames; ++f) {\n      uint32_t v[4];",
-         "    for (int k = 0; k < 4; ++k) w[k] = c.bg_word;\n"
-         "    for (int f = 0; f < 0; ++f) {\n      uint32_t v[4];")]),
-    ("amidar_frame", "first frame only"): ("frame", [
-        ("amidar_frame.cu",
-         "    for (int f = 0; f < frames; ++f) {\n      uint32_t v[4];",
-         "    for (int f = 0; f < 1; ++f) {\n      uint32_t v[4];")]),
-    ("amidar_frame", "or for max"): ("frame", [
-        ("amidar_frame.cu", *_OR_FOR_MAX)]),
-    ("amidar_frame", "warp as is"): ("warp", []),
+    **_chunk_variants(
+        "breakout_frame", "c.bg",
+        "frame_chunk(tables, 0, y, chunk, true, c, w);",
+        _fused("compose_chunk(tb, 0, y, bits & 0x1Fu, chunk, c, w);")),
+    **_chunk_variants(
+        "si_frame", "c.word[kBg]",
+        "frame_chunk(tables, y, chunk * kChunk, true, c, w);",
+        _fused("compose_chunk(fr[0].row[r], x0, fr[0], c, w);")),
+    **_chunk_variants(
+        "amidar_frame", "c.bg_word",
+        "frame_chunk(tables, 0, y, chunk * kChunk, 2, c, w);",
+        tuple(f"  for (int f = 0; f < {n}; ++f) {{"
+              for n in ("frames", "0", "1"))),
 }
 
 
@@ -136,7 +143,8 @@ def write_variant(kernel: str, variant: str, subs) -> Path:
 
 
 def build_all(kernels, variants) -> dict:
-    """{(kernel, variant): library path}, one nvcc each, all at once."""
+    """{(kernel, variant): library path}, one nvcc each, all at once;
+    prints each variant's ptxas lines (registers, spills)."""
     running = {}
     for (kernel, variant), (_, subs) in VARIANTS.items():
         if kernel not in kernels or variants and variant not in variants:
@@ -152,6 +160,9 @@ def build_all(kernels, variants) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {key}:\n{log}")
+        print(f"{key[0]} {key[1]}, ptxas: " + " | ".join(
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line), flush=True)
         libs[key] = lib
     return libs
 

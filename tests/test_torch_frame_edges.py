@@ -8,7 +8,10 @@ SI formation pushed past the edges, lasers over the ship and the shields,
 half-eroded shields, Amidar sprites overlapping at the board's corners,
 hidden sprites. The states are chip_smoke.py's edge cases (its phase 3
 holds the kernels to the plain versions on them on the card), built here
-in JAX from the same numpy edits."""
+in JAX from the same numpy edits. The warp form (``warp_to=84``) on the
+same states lies within 1 grey level of the JAX package's warp of the
+max of the two frames (the matmul resize sums in another order than the
+banded sums, as tests/test_torch_render.py allows)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ import toybox_tpu.games.breakout as jbk
 import toybox_tpu.games.space_invaders as jsi
 from toybox_tpu.core.actions import ale_to_input
 from toybox_tpu.games.common import luma2d as j_luma2d
+from toybox_tpu.ops.obs import warp_frame2d
 from toybox_tpu_torch.games import amidar as tam
 from toybox_tpu_torch.games import breakout as tbk
 from toybox_tpu_torch.games import space_invaders as tsi
@@ -99,6 +103,24 @@ def test_plain_frames_match_jax_render_at_the_edges(game, fused):
         want = _jax_frames(jmod, cfg, s1)
     assert got.shape == (N, tmod.HEIGHT, tmod.WIDTH)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("game", sorted(GAMES))
+def test_plain_warp_matches_jax_warp_at_the_edges(game):
+    jmod, tmod, _, _, port2 = GAMES[game]
+    cfg, s1, s2 = _states(game)
+    tcfg = tmod.default_config("cpu")
+    before = dict(render_cuda.LAUNCHES)
+    got = port2(tcfg, warp_to=84)(_to_torch(tmod, s1),
+                                  _to_torch(tmod, s2)).numpy()
+    assert render_cuda.LAUNCHES == before      # the plain version
+    frames = np.maximum(_jax_frames(jmod, cfg, s1),
+                        _jax_frames(jmod, cfg, s2))
+    want = np.asarray(warp_frame2d(jnp.asarray(frames), 84))
+    assert got.shape == want.shape == (N, 84, 84)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    print(f"{game}: {int((diff > 0).sum())} of {diff.size} pixels differ")
+    assert diff.max() <= 1
 
 
 CONSTS = {"breakout": render_cuda.breakout_lumas,

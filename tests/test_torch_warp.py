@@ -256,3 +256,23 @@ def test_warp_tap_bounds_of_each_kernel(name, tmod):
     tables = tobs.warp_tables(tmod.HEIGHT, tmod.WIDTH, 84, "cpu")
     assert int(tables.taps[0, :, 1].max()) == k["kWarpKY"]
     assert int(tables.taps[1, :, 1].max()) == k["kWarpKX"]
+
+
+@pytest.mark.parametrize("name", ["breakout_frame", "si_frame",
+                                  "amidar_frame"])
+def test_warp_entry_streams_chunks_into_the_stages(name):
+    """Each warp entry's stage (`WarpShared`, read from its source) is
+    staged: its warps compose rows ahead into their own stages
+    (STAGE_ROWS > 0) and tile the 84 output rows. No per-pixel
+    composition is left, and the stage lives in static shared memory."""
+    src = (render_cuda.CSRC / f"{name}.cu").read_text()
+    k = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                             src)}
+    shared = re.search(r"using WarpShared = warp84::Shared<([^>]*)>;", src)
+    h, w, ky, warps, stage = (k[a] if a in k else int(a) for a in
+                              map(str.strip, shared[1].split(",")))
+    assert (h, w, ky) == (k["kH"], k["kW"], k["kWarpKY"])
+    assert stage > 0
+    assert warps > 0 and 84 % warps == 0
+    assert "pixel_luma" not in src and "extern __shared__" not in src
+    assert "frame_chunk(tables" in src          # the warp entry's callback

@@ -57,16 +57,15 @@
 //
 // The `amidar_frame_warp` entry point composes the fused frame and warps
 // it to 84 x 84 in the same launch (the `warp_to=84` form of
-// `make_amidar_gray_maxpool_renderer`; the warp is in warp84.cuh). It
-// takes a whole env per block, not a band: the warp needs every row. It
-// still composes pixel by pixel (`pixel_luma`; its redesign is later
-// work), the whole max-pooled frame into shared memory before the warp
-// stage sweeps it: a word of four pixels a thread, two pixels at a time,
-// with the constants in shared memory (`c.tile[code]`, an index that
-// differs between lanes, is serialized by the constant bank).
-// At 1024 envs on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
-// 3, torch.profiler): 390.5 us, where composing into the first version
-// of the warp stage took 505.2 us.
+// `make_amidar_gray_maxpool_renderer`; the warp stage is in warp84.cuh).
+// Its blocks take one env each (4 warps) and build the same tables for
+// the whole frame (the 31 board rows, 9 x spans and 250 row bits a frame,
+// 4.1 KB); the stage composes the frame by the same 16-pixel chunks
+// (`frame_chunk`), kWarpRows rows at a time into each warp's own stage,
+// and never holds it. A first version composed it pixel by pixel in f32
+// (the per-pixel tests above, a word of four pixels a thread) into
+// 56.2 KB of dynamic shared memory before 12 warps swept it: 2 blocks an
+// SM.
 //
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 40000 B = 41.0 MB of frames and reads 1024 * 2 * 1024 * 4 B =
@@ -77,6 +76,17 @@
 // what is left: with only the background stored it takes 14.0 us, the
 // stores at 2.9 TB/s; the second frame's prep pass adds 3.4 us, and the
 // two compositions with the max 4-6 us.
+// The warp entry writes 7 056 B an env: its ordered multiplies and adds
+// bound it (5.1 us at 1024 envs, warp84.cuh). Measured on the same card
+// (chip_smoke.py phase 3): 68.6 us at 1024 envs, 13x the bound and 5.8x
+// faster than the per-pixel version (387.8 us against 66.7-66.8 us in
+// one call of scripts/frame_kernel_variants.py). With the frame left as
+// the background (the contraction and the stage stores) it takes 52.7 us,
+// composing without the contraction 30.3 us: the contraction bounds it,
+// 250 input rows of 2 words a lane. ptxas (sm_90a): 63 registers, no
+// spills, 20 112 B of static shared memory, 8 blocks (32 warps) an SM by
+// its launch bound, so that 1024 envs take one wave; 16-row stages
+// (28 304 B) and 4-6 blocks time alike (65.8-66.8 us in one call).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,6 +120,8 @@ constexpr int kThreads = 256;
 constexpr int kWarpKY = 6;                       // Wy taps (250 -> 84)
 constexpr int kWarpKX = 4;                       // Wx taps (160 -> 84)
 constexpr int kMaxBands = 25;                    // bands of >= 10 rows
+constexpr int kWarpRows = 8;                     // rows composed ahead
+constexpr int kWarpBlocks = 8;                   // warp blocks an SM
 constexpr int kTileWords = kBoardW / 4;          // a board row's words
 constexpr int kConsts = 6;
 
@@ -121,45 +133,9 @@ static_assert(kBoardX0 % kChunk == 0 && (kBoardX1 - kBoardX0) % kChunk == 0
               && kChunk == 4 * kTileW, "a chunk is 4 whole tiles");
 
 struct Consts {
-  float tile[4];          // f32 lumas by tile code (the warp entry)
-  float enemy, player;
   uint32_t tile_bytes;    // byte k: the luma byte of tile code k
   uint32_t bg_word, enemy_word, player_word;  // bytes replicated 4 times
 };
-
-// The warp entry's stage (see warp84.cuh): 12 warps a block, on the whole
-// frame composed first, in dynamic shared memory (above 48 KB).
-using WarpShared = warp84::Shared<kH, kW, kWarpKY, 12, 0>;
-
-// ---------------------------------------------------------------------------
-// The per-pixel composition of the warp entry point
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ bool covers(const float* s, float fx, float fy) {
-  return fx >= s[0] && fx < s[0] + 4.0f && fy >= s[1] && fy < s[1] + 5.0f &&
-         s[2] > 0.0f;
-}
-
-__device__ __forceinline__ float pixel_luma(const float* p, int y, int x,
-                                            const Consts& c) {
-  float v = c.tile[0];
-  if (y >= kBoardY0 && y < kBoardY1 && x >= kBoardX0 && x < kBoardX1) {
-    const int code = static_cast<int>(
-        p[((y - kBoardY0) / kTileH) * kBoardW + (x - kBoardX0) / kTileW]);
-    v = c.tile[min(max(code, 0), 3)];
-  }
-  const float fx = static_cast<float>(x);
-  const float fy = static_cast<float>(y);
-  for (int k = 0; k < kEnemies; ++k) {
-    if (covers(p + kSprite0 + 3 * k, fx, fy)) v = c.enemy;
-  }
-  if (covers(p + kSprite0 + 3 * kEnemies, fx, fy)) v = c.player;
-  return fminf(fmaxf(v, 0.0f), 255.0f);
-}
-
-// ---------------------------------------------------------------------------
-// The row-culled composition of the frame entry point
-// ---------------------------------------------------------------------------
 
 struct Frame {          // one frame's block-wide tables, in shared memory
   uint32_t tiles[kBoardH][kTileWords];  // 4 tile bytes a word (the band's
@@ -168,35 +144,36 @@ struct Frame {          // one frame's block-wide tables, in shared memory
   uint32_t row[kH];                     // sprites crossing the band's row
 };
 
+// The warp entry's stage (see warp84.cuh): 4 warps a block, each composing
+// kWarpRows rows ahead.
+using WarpShared = warp84::Shared<kH, kW, kWarpKY, 4, kWarpRows>;
+
+// The kernels' shared memory, at namespace scope so that the warp stage's
+// composition callback reads it without a capture.
+__shared__ Frame tables[2];
+__shared__ WarpShared ws;
+
 // The board row of pixel row y, or -1 off the board.
 __device__ __forceinline__ int board_row(int y) {
   return y >= kBoardY0 && y < kBoardY1 ? (y - kBoardY0) / kTileH : -1;
 }
 
-// Grid (n, bands): block (e, b) composes rows [b * rows, (b + 1) * rows)
-// of env e's frame, rows = kH / bands.
-__global__ void __launch_bounds__(kThreads)
-amidar_frame_kernel(const float* __restrict__ prep,
-                    uint8_t* __restrict__ out, int fused,
-                    const __grid_constant__ Consts c) {
-  __shared__ Frame fr[2];
-  const int frames = fused ? 2 : 1;
-  const int t = threadIdx.x;
-  const float* src = prep + static_cast<size_t>(blockIdx.x) * frames * kPrep;
-  const int rows = kH / gridDim.y;
-  const int y0 = blockIdx.y * rows;
-  // the board rows [tile0, tile1) that the band meets
+// One pass over the prep of `frames` frames at src (from L2) for rows
+// [y0, y0 + rows), by the block's nthreads threads, about one item a
+// thread: the tile bytes of the board rows the rows meet (4 tile codes a
+// float4 load -> one word), the sprites' x spans, and which sprites cross
+// each row (the plain version's f32 test of the sprite's rows).
+__device__ __forceinline__ void build_tables(const float* __restrict__ src,
+                                             int frames, int y0, int rows,
+                                             const Consts& c, Frame fr[2],
+                                             int nthreads) {
+  // the board rows [tile0, tile1) that rows [y0, y0 + rows) meet
   const int tile0 = board_row(max(y0, kBoardY0));
   const int tile1 = board_row(min(y0 + rows, kBoardY1) - 1) + 1;
   const int tile_items = tile0 >= 0 && tile1 > tile0
                              ? (tile1 - tile0) * kTileWords : 0;
-
-  // one pass over the prep (from L2), about one item a thread: the band's
-  // tile bytes (4 tile codes a float4 load -> one word), the sprites' x
-  // spans, and which sprites cross each row (the plain version's f32 test
-  // of the sprite's rows)
   const int items = tile_items + kSprites + rows;
-  for (int i = t; i < frames * items; i += kThreads) {
+  for (int i = threadIdx.x; i < frames * items; i += nthreads) {
     const int f = i / items;
     const int j = i - f * items;
     const float* p = src + f * kPrep;
@@ -230,91 +207,95 @@ amidar_frame_kernel(const float* __restrict__ prep,
       fr[f].row[r] = bits;
     }
   }
+}
+
+// Four words (16 pixels from x0) of row r of the block's rows (pixel row
+// y0 + r): frame 0's, or for two frames the byte max of both frames'
+// words (taken only where they differ). Each frame's words are the tiles
+// (one word of four tile bytes, each replicated over its word by a byte
+// permute) or the background, then the enemies and the player (drawn
+// last: the player wins overlaps).
+__device__ __forceinline__ void frame_chunk(const Frame fr[2], int y0, int r,
+                                            int x0, int frames,
+                                            const Consts& c, uint32_t w[4]) {
+  const int tr = board_row(y0 + r);
+  const bool on_board = tr >= 0 && x0 >= kBoardX0 && x0 < kBoardX1;
+  const int tile_word = (x0 - kBoardX0) / kChunk;
+  for (int f = 0; f < frames; ++f) {
+    uint32_t v[4];
+    if (on_board) {
+      const uint32_t tb = fr[f].tiles[tr][tile_word];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __byte_perm(tb, 0, 0x1111u * k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = c.bg_word;
+    }
+    uint32_t enemies = 0, player = 0;
+    for (uint32_t b = fr[f].row[r]; b; b &= b - 1) {
+      const int k = __ffs(b) - 1;
+      const uint32_t m = chunk_mask(fr[f].xspan[k].x, fr[f].xspan[k].y, x0);
+      if (k < kEnemies) {
+        enemies |= m;
+      } else {
+        player = m;
+      }
+    }
+    paint(v, enemies, c.enemy_word);
+    paint(v, player, c.player_word);
+    if (f == 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = v[k];
+    } else if ((w[0] ^ v[0]) | (w[1] ^ v[1]) | (w[2] ^ v[2]) |
+               (w[3] ^ v[3])) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);
+    }
+  }
+}
+
+// Grid (n, bands): block (e, b) composes rows [b * rows, (b + 1) * rows)
+// of env e's frame, rows = kH / bands.
+__global__ void __launch_bounds__(kThreads)
+amidar_frame_kernel(const float* __restrict__ prep,
+                    uint8_t* __restrict__ out, int fused,
+                    const __grid_constant__ Consts c) {
+  const int frames = fused ? 2 : 1;
+  const int rows = kH / gridDim.y;
+  const int y0 = blockIdx.y * rows;
+  build_tables(prep + static_cast<size_t>(blockIdx.x) * frames * kPrep,
+               frames, y0, rows, c, tables, kThreads);
   __syncthreads();
 
   // the band's rows are contiguous: chunk i is at byte 16 * i
   uint4* band = reinterpret_cast<uint4*>(
       out + (static_cast<size_t>(blockIdx.x) * kH + y0) * kW);
-  for (int i = t; i < rows * kRowChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kRowChunks; i += kThreads) {
     const int r = i / kRowChunks;
-    const int x0 = (i - r * kRowChunks) * kChunk;
-    const int tr = board_row(y0 + r);
-    const bool on_board = tr >= 0 && x0 >= kBoardX0 && x0 < kBoardX1;
-    const int tile_word = (x0 - kBoardX0) / kChunk;
     uint32_t w[4];
-    for (int f = 0; f < frames; ++f) {
-      uint32_t v[4];
-      if (on_board) {
-        const uint32_t tb = fr[f].tiles[tr][tile_word];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = __byte_perm(tb, 0, 0x1111u * k);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = c.bg_word;
-      }
-      uint32_t enemies = 0, player = 0;
-      for (uint32_t b = fr[f].row[r]; b; b &= b - 1) {
-        const int k = __ffs(b) - 1;
-        const uint32_t m = chunk_mask(fr[f].xspan[k].x, fr[f].xspan[k].y,
-                                      x0);
-        if (k < kEnemies) {
-          enemies |= m;
-        } else {
-          player = m;
-        }
-      }
-      paint(v, enemies, c.enemy_word);
-      paint(v, player, c.player_word);
-      if (f == 0) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = v[k];
-      } else if ((w[0] ^ v[0]) | (w[1] ^ v[1]) | (w[2] ^ v[2]) |
-                 (w[3] ^ v[3])) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);
-      }
-    }
+    frame_chunk(tables, y0, r, (i - r * kRowChunks) * kChunk, frames, c,
+                w);
     band[i] = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-__global__ void __launch_bounds__(WarpShared::kThreads, 2)
+// One block per env (see the note for its footprint).
+__global__ void __launch_bounds__(WarpShared::kThreads, kWarpBlocks)
 amidar_frame_warp_kernel(const float* __restrict__ prep,
-                         uint8_t* __restrict__ out, Consts c,
-                         warp84::Args a) {
-  extern __shared__ float4 smem4[];
-  WarpShared& ws = *reinterpret_cast<WarpShared*>(smem4);
-  __shared__ float sp[2 * kPrep];
-  // the constants in shared memory: pixel_luma indexes them by a value
-  // that differs between lanes, which the constant bank serializes
-  __shared__ Consts sc;
-  const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
-  for (int i = threadIdx.x; i < 2 * kPrep; i += WarpShared::kThreads) {
-    sp[i] = src[i];
-  }
-  if (threadIdx.x == 0) sc = c;
+                         uint8_t* __restrict__ out,
+                         const __grid_constant__ Consts c,
+                         const __grid_constant__ warp84::Args a) {
   warp84::load_taps(ws, a);
   __syncthreads();
-  // the max-pooled frame into the stage's frame rows, a word of four
-  // pixels a thread, two pixels at a time
-  uint32_t* img = reinterpret_cast<uint32_t*>(warp84::frame(ws));
-#pragma unroll 1
-  for (int i = threadIdx.x; i < kH * kW / 4; i += WarpShared::kThreads) {
-    const int y = i / (kW / 4);
-    const int x0 = 4 * (i - y * (kW / 4));
-    uint32_t word = 0;
-#pragma unroll 2
-    for (int b = 0; b < 4; ++b) {
-      word |= static_cast<uint32_t>(static_cast<int>(
-          fmaxf(pixel_luma(sp, y, x0 + b, sc),
-                pixel_luma(sp + kPrep, y, x0 + b, sc)))) << (8 * b);
-    }
-    img[i] = word;
-  }
+  build_tables(prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep, 2, 0, kH,
+               c, tables, WarpShared::kThreads);
   warp84::Cols<kWarpKX> cols;
   warp84::prepare(ws, a, cols);
   __syncthreads();
-  warp84::sweep(ws, cols, warp84::NoCompose{},
+  warp84::sweep(ws, cols,
+                [=](int y, int chunk, uint32_t w[4]) {
+                  frame_chunk(tables, 0, y, chunk * kChunk, 2, c, w);
+                },
                 out + static_cast<size_t>(blockIdx.x) * warp84::kSize *
                           warp84::kSize);
 }
@@ -328,9 +309,6 @@ bool parse_consts(const float* consts, int n_consts, Consts* c) {
     bytes[k] = static_cast<uint32_t>(
         static_cast<int>(fminf(fmaxf(consts[k], 0.0f), 255.0f)));
   }
-  for (int k = 0; k < 4; ++k) c->tile[k] = consts[k];
-  c->enemy = consts[4];
-  c->player = consts[5];
   c->tile_bytes = bytes[0] | (bytes[1] << 8) | (bytes[2] << 16) |
                   (bytes[3] << 24);
   c->bg_word = bytes[0] * 0x01010101u;
@@ -380,14 +358,13 @@ extern "C" int amidar_frame_warp(const float* prep, uint8_t* out, int n,
   if (!parse_consts(consts, n_consts, &c) || size != warp84::kSize) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (reinterpret_cast<uintptr_t>(prep) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);  // float4 loads
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = warp84::allow_smem(
-      reinterpret_cast<const void*>(amidar_frame_warp_kernel),
-      sizeof(WarpShared));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    amidar_frame_warp_kernel<<<n, WarpShared::kThreads, sizeof(WarpShared),
+    amidar_frame_warp_kernel<<<n, WarpShared::kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         prep, out, c, warp84::Args{wy, wx, taps, size});
   }

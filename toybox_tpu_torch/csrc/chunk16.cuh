@@ -1,6 +1,6 @@
 // The 16-pixel chunk composition shared by the frame kernels of
 // csrc/si_frame.cu, csrc/amidar_frame.cu and csrc/breakout_frame.cu (their
-// frame entry points, and Breakout's warp entry point).
+// frame and warp entry points).
 //
 // A thread composes 16 consecutive pixels of a row as four u32 words of
 // four u8 pixels each, and writes them with one 16-byte store. Each layer

@@ -62,14 +62,14 @@
 //
 // The `si_frame_warp` entry point composes the fused frame and warps it to
 // 84 x 84 in the same launch (the `warp_to=84` form of
-// `make_si_gray_maxpool_renderer`; the warp is in warp84.cuh). It takes a
-// whole env per block, not a band: the warp needs every row. It still
-// composes pixel by pixel (`pixel_luma`; its redesign is later work), the
-// whole max-pooled frame into shared memory before the warp stage sweeps
-// it: a word of four pixels a thread, two pixels at a time.
-// At 1024 envs on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase
-// 3, torch.profiler): 967.6 us, where composing into the first version
-// of the warp stage took 1438.7 us.
+// `make_si_gray_maxpool_renderer`; the warp stage is in warp84.cuh). Its
+// blocks take one env each (4 warps) and build the same tables for the
+// whole frame (210 row descriptors a frame, 6.8 KB); the stage composes
+// the frame by the same 16-pixel chunks (`frame_chunk`), 8 rows at a time
+// into each warp's own stage, and never holds it. A first version
+// composed it pixel by pixel in f32 (the per-pixel tests above, a word of
+// four pixels a thread) into 89.4 KB of dynamic shared memory before 12
+// warps swept it: 2 blocks an SM.
 //
 // Bound on this card: bytes. At 1024 envs the fused kernel writes
 // 1024 * 67200 B = 68.8 MB of frames and reads 1024 * 2 * 128 * 4 B =
@@ -81,6 +81,18 @@
 // stores kept) it takes 22.4 us, the 16-byte stores at 3.1 TB/s; the
 // first frame's composition adds 3.9 us and the second frame's with the
 // max 6.3 us, issue that the stores no longer hide.
+// The warp entry writes 7 056 B an env: its ordered multiplies and adds
+// bound it (8.8 us at 1024 envs, warp84.cuh). Measured on the same card
+// (chip_smoke.py phase 3): 105.2 us at 1024 envs, 11.9x the bound and 9x
+// faster than the per-pixel version (959.0-976.5 us against 103.6-103.9
+// us in one call of scripts/frame_kernel_variants.py). The variants show
+// two halves that do not hide each other: with the frame left as the
+// background (the contraction and the stage stores) it takes 62.6 us,
+// and composing without the contraction 63.6 us. ptxas (sm_90a):
+// 95 registers, no spills, 28 640 B of static shared memory, 5 blocks
+// (20 warps) an SM by its launch bound. 4-6 blocks time alike (98.4-103.5
+// us in one call; at 6 it gets 80 registers and spills 8 B), 7 and 8
+// spill 40 and 72 B and take 111.5 and 117.6 us.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -109,6 +121,8 @@ constexpr int kThreads = 512;
 constexpr int kWarpKY = 5;                       // Wy taps (210 -> 84)
 constexpr int kWarpKX = 8;                       // Wx taps (320 -> 84)
 constexpr int kMaxBands = 14;                    // bands of >= 15 rows
+constexpr int kWarpRows = 8;                     // rows composed ahead
+constexpr int kWarpBlocks = 5;                   // warp blocks an SM
 constexpr int kConsts = 11;
 // formation geometry (games/space_invaders.py)
 constexpr int kCols = 6, kRows = 6, kCellW = 16, kCellH = 10, kDX = 32,
@@ -125,60 +139,10 @@ static_assert(kDX == 2 * kCellW && kDX == 32, "one cell a chunk, x >> 5");
 enum Layer { kBg, kEnemy, kShield, kUfo, kShip, kLaser, kLayers };
 
 struct Consts {
-  float luma[kLayers];       // f32 lumas (the warp entry's pixel_luma)
   uint32_t word[kLayers];    // each luma's byte, replicated 4 times
   int n_shields, shield_y;
   int shield_x[kMaxShields];
 };
-
-// The warp entry's stage (see warp84.cuh): 12 warps a block, on the whole
-// frame composed first, in dynamic shared memory (above 48 KB).
-using WarpShared = warp84::Shared<kH, kW, kWarpKY, 12, 0>;
-
-// ---------------------------------------------------------------------------
-// The per-pixel composition of the warp entry point
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ bool covers(const float* s, float w, float h,
-                                       float fx, float fy) {
-  return fx >= s[0] && fx < s[0] + w && fy >= s[1] && fy < s[1] + h &&
-         s[2] > 0.0f;
-}
-
-__device__ __forceinline__ float pixel_luma(const float* p, int y, int x,
-                                            const Consts& c) {
-  float v = c.luma[kBg];
-  const int rx = x - static_cast<int>(p[kAnchor]);
-  const int ry = y - static_cast<int>(p[kAnchor + 1]);
-  if (rx >= 0 && ry >= 0 && rx < kCols * kDX && ry < kRows * kDY &&
-      rx % kDX < kCellW && ry % kDY < kCellH &&
-      p[kShow + (ry / kDY) * kCols + rx / kDX] > 0.0f) {
-    v = c.luma[kEnemy];
-  }
-  bool shield = false;
-  const int sy = y - c.shield_y;
-  for (int s = 0; s < c.n_shields; ++s) {
-    const int sx = x - c.shield_x[s];
-    if (sx >= 0 && sx < 16 && sy >= 0 && sy < 18) {
-      shield = (static_cast<int>(p[kShieldRows + 18 * s + sy]) >> sx) & 1;
-    }
-  }
-  if (shield) v = c.luma[kShield];
-  const float fx = static_cast<float>(x);
-  const float fy = static_cast<float>(y);
-  if (covers(p + kSprite0, 16.0f, 10.0f, fx, fy)) v = c.luma[kUfo];
-  if (covers(p + kSprite0 + 3, 16.0f, 10.0f, fx, fy)) v = c.luma[kShip];
-  for (int k = 2; k < kSprites; ++k) {
-    if (covers(p + kSprite0 + 3 * k, 2.0f, 8.0f, fx, fy)) {
-      v = c.luma[kLaser];
-    }
-  }
-  return fminf(fmaxf(v, 0.0f), 255.0f);
-}
-
-// ---------------------------------------------------------------------------
-// The row-culled composition of the frame entry point
-// ---------------------------------------------------------------------------
 
 struct Frame {          // one frame's block-wide tables, in shared memory
   int2 xspan[kSprites];
@@ -187,6 +151,15 @@ struct Frame {          // one frame's block-wide tables, in shared memory
                          // crossing the row [8, 15); y: shield 0 | 1 << 16
                          // row masks; z: shield 2 | in the band << 16
 };
+
+// The warp entry's stage (see warp84.cuh): 4 warps a block, each composing
+// 8 rows ahead.
+using WarpShared = warp84::Shared<kH, kW, kWarpKY, 4, kWarpRows>;
+
+// The kernels' shared memory, at namespace scope so that the warp stage's
+// composition callback reads it without a capture.
+__shared__ Frame tables[2];
+__shared__ WarpShared ws;
 
 // Sprite t's x span (t < kSprites) or the anchor's x (t == kSprites) of
 // frame p.
@@ -301,22 +274,32 @@ __device__ __forceinline__ void compose_chunk(const uint4 d, int x0,
   paint(w, laser, c.word[kLaser]);
 }
 
-// Grid (n, bands): block (e, b) composes rows [b * rows, (b + 1) * rows)
-// of env e's frame, rows = kH / bands.
-__global__ void __launch_bounds__(kThreads)
-si_frame_kernel(const float* __restrict__ prep, uint8_t* __restrict__ out,
-                int fused, const __grid_constant__ Consts c) {
-  __shared__ Frame fr[2];
-  const int frames = fused ? 2 : 1;
-  const int t = threadIdx.x;
-  const float* src = prep + static_cast<size_t>(blockIdx.x) * frames * kPrep;
-  const int rows = kH / gridDim.y;
-  const int y0 = blockIdx.y * rows;
+// Four words (16 pixels from x0) of row r of the block's rows: frame 0's,
+// or with `fused` the byte max of both frames' words (taken only where
+// they differ).
+__device__ __forceinline__ void frame_chunk(const Frame fr[2], int r, int x0,
+                                            bool fused, const Consts& c,
+                                            uint32_t w[4]) {
+  compose_chunk(fr[0].row[r], x0, fr[0], c, w);
+  if (fused) {
+    uint32_t v[4];
+    compose_chunk(fr[1].row[r], x0, fr[1], c, v);
+    if ((w[0] ^ v[0]) | (w[1] ^ v[1]) | (w[2] ^ v[2]) | (w[3] ^ v[3])) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);
+    }
+  }
+}
 
-  // one pass over the prep (from L2): the row descriptors, then the
-  // sprites' x spans and the anchor's x
+// One pass over the prep of `frames` frames at src (from L2) for rows
+// [y0, y0 + rows), by the block's nthreads threads: the row descriptors,
+// then the sprites' x spans and the anchor's x.
+__device__ __forceinline__ void build_tables(const float* __restrict__ src,
+                                             int frames, int y0, int rows,
+                                             const Consts& c, Frame fr[2],
+                                             int nthreads) {
   const int items = rows + kSprites + 1;
-  for (int i = t; i < frames * items; i += kThreads) {
+  for (int i = threadIdx.x; i < frames * items; i += nthreads) {
     const int f = i / items;
     const int j = i - f * items;
     if (j < rows) {
@@ -325,60 +308,48 @@ si_frame_kernel(const float* __restrict__ prep, uint8_t* __restrict__ out,
       frame_span(src + f * kPrep, j - rows, fr[f]);
     }
   }
+}
+
+// Grid (n, bands): block (e, b) composes rows [b * rows, (b + 1) * rows)
+// of env e's frame, rows = kH / bands.
+__global__ void __launch_bounds__(kThreads)
+si_frame_kernel(const float* __restrict__ prep, uint8_t* __restrict__ out,
+                int fused, const __grid_constant__ Consts c) {
+  const int frames = fused ? 2 : 1;
+  const int rows = kH / gridDim.y;
+  const int y0 = blockIdx.y * rows;
+  build_tables(prep + static_cast<size_t>(blockIdx.x) * frames * kPrep,
+               frames, y0, rows, c, tables, kThreads);
   __syncthreads();
 
   // the band's rows are contiguous: chunk i is at byte 16 * i
   uint4* band = reinterpret_cast<uint4*>(
       out + (static_cast<size_t>(blockIdx.x) * kH + y0) * kW);
-  for (int i = t; i < rows * kRowChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kRowChunks; i += kThreads) {
     const int r = i / kRowChunks;
-    const int x0 = (i - r * kRowChunks) * kChunk;
     uint32_t w[4];
-    compose_chunk(fr[0].row[r], x0, fr[0], c, w);
-    if (fused) {
-      uint32_t v[4];
-      compose_chunk(fr[1].row[r], x0, fr[1], c, v);
-      if ((w[0] ^ v[0]) | (w[1] ^ v[1]) | (w[2] ^ v[2]) | (w[3] ^ v[3])) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = __vmaxu4(w[k], v[k]);
-      }
-    }
+    frame_chunk(tables, r, (i - r * kRowChunks) * kChunk, fused, c, w);
     band[i] = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-__global__ void __launch_bounds__(WarpShared::kThreads, 2)
+// One block per env (see the note for its footprint).
+__global__ void __launch_bounds__(WarpShared::kThreads, kWarpBlocks)
 si_frame_warp_kernel(const float* __restrict__ prep,
-                     uint8_t* __restrict__ out, Consts c, warp84::Args a) {
-  extern __shared__ float4 smem4[];
-  WarpShared& ws = *reinterpret_cast<WarpShared*>(smem4);
-  __shared__ float sp[2 * kPrep];
-  const float* src = prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep;
-  for (int i = threadIdx.x; i < 2 * kPrep; i += WarpShared::kThreads) {
-    sp[i] = src[i];
-  }
+                     uint8_t* __restrict__ out,
+                     const __grid_constant__ Consts c,
+                     const __grid_constant__ warp84::Args a) {
   warp84::load_taps(ws, a);
   __syncthreads();
-  // the max-pooled frame into the stage's frame rows, a word of four
-  // pixels a thread, two pixels at a time
-  uint32_t* img = reinterpret_cast<uint32_t*>(warp84::frame(ws));
-#pragma unroll 1
-  for (int i = threadIdx.x; i < kH * kW / 4; i += WarpShared::kThreads) {
-    const int y = i / (kW / 4);
-    const int x0 = 4 * (i - y * (kW / 4));
-    uint32_t word = 0;
-#pragma unroll 2
-    for (int b = 0; b < 4; ++b) {
-      word |= static_cast<uint32_t>(static_cast<int>(
-          fmaxf(pixel_luma(sp, y, x0 + b, c),
-                pixel_luma(sp + kPrep, y, x0 + b, c)))) << (8 * b);
-    }
-    img[i] = word;
-  }
+  build_tables(prep + static_cast<size_t>(blockIdx.x) * 2 * kPrep, 2, 0, kH,
+               c, tables, WarpShared::kThreads);
   warp84::Cols<kWarpKX> cols;
   warp84::prepare(ws, a, cols);
   __syncthreads();
-  warp84::sweep(ws, cols, warp84::NoCompose{},
+  warp84::sweep(ws, cols,
+                [=](int y, int chunk, uint32_t w[4]) {
+                  frame_chunk(tables, y, chunk * kChunk, true, c, w);
+                },
                 out + static_cast<size_t>(blockIdx.x) * warp84::kSize *
                           warp84::kSize);
 }
@@ -387,7 +358,6 @@ si_frame_warp_kernel(const float* __restrict__ prep,
 bool parse_consts(const float* consts, int n_consts, Consts* c) {
   if (n_consts != kConsts) return false;
   for (int k = 0; k < kLayers; ++k) {
-    c->luma[k] = consts[k];
     const uint32_t byte = static_cast<uint32_t>(
         static_cast<int>(fminf(fmaxf(consts[k], 0.0f), 255.0f)));
     c->word[k] = byte * 0x01010101u;
@@ -443,11 +413,8 @@ extern "C" int si_frame_warp(const float* prep, uint8_t* out, int n,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = warp84::allow_smem(
-      reinterpret_cast<const void*>(si_frame_warp_kernel), sizeof(WarpShared));
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    si_frame_warp_kernel<<<n, WarpShared::kThreads, sizeof(WarpShared),
+    si_frame_warp_kernel<<<n, WarpShared::kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         prep, out, c, warp84::Args{wy, wx, taps, size});
   }

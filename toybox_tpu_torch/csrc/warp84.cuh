@@ -43,16 +43,11 @@
 //     read lies in the row: the terms outside the band have weight 0),
 //     then rounded half to even (the sum is >= 0: one f32-to-u32
 //     conversion), clipped, one byte stored.
-// The rows the sweep reads come from one of two sources (Shared):
-//   - stages (Breakout): every STAGE_ROWS rows the warp's 32 lanes compose
-//     the next rows in 16-pixel chunks (the game's callback) into the
-//     warp's own stage, all lanes busy whatever the width. The frame is
-//     never held, so the shared memory stays small: 4 warps and 27.6 KB
-//     a block with the game's tables, 8 blocks (32 warps) an SM;
-//   - a whole frame (Space Invaders, Amidar, whose composition is still
-//     per pixel and long): all the block's threads compose the frame into
-//     shared memory first, as bytes, and 12 warps sweep it (7 output rows
-//     each); 89.4 and 56.2 KB of dynamic shared memory, 2 blocks an SM.
+// The rows the sweep reads come from the game: every STAGE_ROWS rows the
+// warp's 32 lanes compose the next rows in 16-pixel chunks (the game's
+// callback) into the warp's own stage, all lanes busy whatever the width.
+// The frame is never held, so the shared memory stays small and many
+// blocks share an SM (each game's file gives its footprint).
 // What the sweep assumes of the tables, checked in the set-up: every band
 // holds 1..KY (rows) or 1..KX (columns) taps inside the frame; the bands'
 // first rows never decrease and their last rows increase; and band i + 2
@@ -60,22 +55,15 @@
 // The first version of this stage held the whole frame and an f32
 // t[84, W] in one 512-thread block (Breakout 119 040 B: one block an SM),
 // read every weight from global memory per tap and converted every
-// byte per tap (I2F).
+// byte per tap (I2F); a second one, for Space Invaders and Amidar,
+// composed the whole frame per pixel into shared memory before 12 warps
+// swept it (89.4 and 56.2 KB, 2 blocks an SM).
 //
 // Bound on this card: operations (at 1024 envs the bands' ordered
 // multiplies and adds, 0.21-0.37 M per env, take 3.3-5.7 us at 67 TFLOP/s,
 // and the composition's selects add a third; the prep read and the 7 056 B
-// per env written take 1-3 us at 3.35 TB/s). Measured on an NVIDIA H100
-// 80GB HBM3 at 700 W (chip_smoke.py phase 3, kernel time from
-// torch.profiler, 1024 envs), against the first version: Breakout 51.8
-// us (was 377.0), Space Invaders 967.6 us (1438.7), Amidar 390.5 us
-// (505.2). For Breakout the contraction takes 44.7 us of it with the
-// frame left as the background (scripts/frame_kernel_variants.py), at 10x
-// its bound: issue, of which the per-row weights and the accumulator
-// shift at each output row are a part; for the other two the per-pixel
-// composition takes most of it. ptxas (sm_90a): Space Invaders 80
-// registers, 89 376 B of dynamic shared memory, 2 blocks (24 warps) an
-// SM; Amidar 80 registers, 56 240 B, 2 blocks; Breakout in its file.
+// per env written take 1-3 us at 3.35 TB/s). The measured times, against
+// that bound, are in each game's file.
 
 #pragma once
 
@@ -103,15 +91,10 @@ __device__ __forceinline__ float byte_float(uint32_t word, int b) {
                    8388608.0f);
 }
 
-// The stage's shared memory, declared by the kernel at namespace scope (or
-// laid over its dynamic shared memory when above 48 KB).
+// The stage's shared memory, declared by the kernel at namespace scope.
 // H x W is the frame, KY bounds the taps of a Wy row, WARPS is the block's
-// warps (one env; each warp takes 84 / WARPS output rows). The rows the
-// sweep reads come from one of two sources:
-//   STAGE_ROWS > 0: each warp composes the next STAGE_ROWS input rows into
-//     its own stage as it goes (the frame is never held);
-//   STAGE_ROWS == 0: the block composes the whole frame into `rows` first
-//     (u8[H, W]), all its threads at once, before the second barrier.
+// warps (one env; each warp takes 84 / WARPS output rows), and each warp
+// composes the next STAGE_ROWS input rows into its own stage as it goes.
 template <int H, int W, int KY, int WARPS, int STAGE_ROWS>
 struct Shared {
   static constexpr int kH = H, kW = W, kKY = KY, kWarps = WARPS;
@@ -121,31 +104,17 @@ struct Shared {
   static constexpr int kChunks = W / 16;                 // chunks a row
   static constexpr int kWords = W / 4;                   // words a row
   static constexpr int kLaneWords = (kWords + 31) / 32;  // a lane's words
+  // a stage row's words: the row, then pad words (read into accumulators
+  // that are never used: any bytes are finite)
   static constexpr int kPadWords = 32 * kLaneWords;
-  // the stages, or the frame and one row's pad words past its end (read
-  // into accumulators that are never used: any bytes are finite)
-  static constexpr int kRowWords = STAGE_ROWS > 0
-      ? WARPS * STAGE_ROWS * kPadWords : H * kWords + kPadWords;
   static_assert(W % 16 == 0 && H >= KY, "frame too small or not in chunks");
   static_assert(kRowsPerWarp * WARPS == kSize, "warps must tile the rows");
-  uint4 rows[kRowWords / 4];
+  static_assert(STAGE_ROWS > 0, "a stage holds at least one row");
+  uint4 rows[WARPS * STAGE_ROWS * kPadWords / 4];  // the stages
   float4 t[WARPS][kPadWords];                // a t row, 4 columns a float4
   float wy[kSize][KY];                       // Wy[i, ys[i] + k]
   int ys[kSize];                             // min(first_i, H - KY)
   int2 taps[2][kSize];                       // (first, count)
-};
-
-// Let `kernel` take `bytes` of dynamic shared memory (a Shared above the
-// 48 KB of static shared memory goes there).
-inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// The compose argument of a sweep over a whole frame (never called).
-struct NoCompose {
-  __device__ void operator()(int, int, uint32_t*) const {}
 };
 
 // A lane's Wx bands, in registers: output column lane + 32 q takes
@@ -160,9 +129,8 @@ struct Cols {
 //   load_taps(s, a)        before the block's first barrier;
 //   prepare(s, a, cols)    between the first and the second barrier;
 //   sweep(s, cols, compose, dst)  after the second.
-// Until sweep() a stage is free for the caller's set-up (`rows`,
-// sizeof(S::rows) bytes); a whole frame is composed into `frame(s)`
-// between the two barriers.
+// Until sweep() the stages are free for the caller's set-up (`rows`,
+// sizeof(S::rows) bytes).
 
 template <class S>
 __device__ __forceinline__ void load_taps(S& s, const Args& a) {
@@ -170,12 +138,6 @@ __device__ __forceinline__ void load_taps(S& s, const Args& a) {
     s.taps[i / kSize][i % kSize] =
         make_int2(__ldg(a.taps + 2 * i), __ldg(a.taps + 2 * i + 1));
   }
-}
-
-template <class S>
-__device__ __forceinline__ uint8_t* frame(S& s) {
-  static_assert(S::kStageRows == 0, "the stages hold no frame");
-  return reinterpret_cast<uint8_t*>(s.rows);
 }
 
 // Checks the tables (see the note), takes Wy's bands into s and the lane's
@@ -214,18 +176,16 @@ __device__ __forceinline__ void prepare(S& s, const Args& a, Cols<KX>& cols) {
   }
 }
 
-// Writes u8[84, 84] to dst, the warp of the frame. With stages, compose(y,
-// chunk, w) gives it: w[k] the max-pooled, truncated bytes of pixels
+// Writes u8[84, 84] to dst, the warp of the frame that compose(y, chunk,
+// w) gives: w[k] the max-pooled, truncated bytes of pixels
 // 16 chunk + 4 k .. 16 chunk + 4 k + 3 of row y (byte b = pixel
-// 16 chunk + 4 k + b); with a whole frame, compose is not called.
+// 16 chunk + 4 k + b).
 template <int KX, class S, class Compose>
 __device__ __forceinline__ void sweep(S& s, const Cols<KX>& cols,
                                       Compose compose,
                                       uint8_t* __restrict__ dst) {
-  constexpr int H = S::kH, kChunks = S::kChunks, kWords = S::kWords;
-  constexpr int kLaneWords = S::kLaneWords;
-  constexpr int kStaged = S::kStageRows > 0;
-  constexpr int kBatch = kStaged ? S::kStageRows : 8;
+  constexpr int H = S::kH, kChunks = S::kChunks;
+  constexpr int kLaneWords = S::kLaneWords, kBatch = S::kStageRows;
   const int lane = threadIdx.x & 31;
   const int wp = threadIdx.x >> 5;
 
@@ -244,32 +204,27 @@ __device__ __forceinline__ void sweep(S& s, const Cols<KX>& cols,
 #pragma unroll
     for (int b = 0; b < 4; ++b) acc0[p][b] = acc1[p][b] = 0.0f;
   }
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(s.rows);
   uint4* stage = s.rows + wp * (kBatch * S::kPadWords / 4);
   float4* t = s.t[wp];
 
   for (int yb = y_begin; yb < y_end; yb += kBatch) {
     const int rows = min(kBatch, y_end - yb);
-    if constexpr (kStaged) {
-      __syncwarp();                        // the last stage has been read
-      for (int k = lane; k < rows * kChunks; k += 32) {
-        const int r = k / kChunks;
-        const int chunk = k - r * kChunks;
-        uint32_t w[4];
-        compose(yb + r, chunk, w);
-        stage[r * (S::kPadWords / 4) + chunk] =
-            make_uint4(w[0], w[1], w[2], w[3]);
-      }
-      __syncwarp();
+    __syncwarp();                          // the last stage has been read
+    for (int k = lane; k < rows * kChunks; k += 32) {
+      const int r = k / kChunks;
+      const int chunk = k - r * kChunks;
+      uint32_t w[4];
+      compose(yb + r, chunk, w);
+      stage[r * (S::kPadWords / 4) + chunk] =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
+    __syncwarp();
     for (int r = 0; r < rows; ++r) {
       const int y = yb + r;
       const float w0 = y >= ys0 ? s.wy[cur][y - ys0] : 0.0f;
       const float w1 = y >= ys1 ? s.wy[cur + 1][y - ys1] : 0.0f;
       const uint32_t* row =
-          kStaged ? reinterpret_cast<const uint32_t*>(stage) +
-                        r * S::kPadWords
-                  : words + y * kWords;
+          reinterpret_cast<const uint32_t*>(stage) + r * S::kPadWords;
 #pragma unroll
       for (int p = 0; p < kLaneWords; ++p) {
         const uint32_t word = row[lane + 32 * p];

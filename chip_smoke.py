@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It drives the two paths of the port through the entry points a user
-calls: the regress (serving) path of each ported game (Breakout, Space
-Invaders, Amidar) with the game's committed PPO model, and PPO training
+It drives the paths of the port through the entry points a user
+calls: the regress (serving) path of each frame-kernel game (Breakout,
+Space Invaders, Amidar) with the game's committed PPO model, PPO training
 (``rl.ppo.learn``) over the pipeline's in-kernel warp, at the Breakout
-recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs).
+recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs), and
+the rest of the env layer: Gridworld, the batched env's obs modes, the
+state samplers, seed-state extraction and the gym surface.
 Phases, each printing one line per game with its own wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every frame kernel (csrc/*.cu) with nvcc, all at once, and
@@ -73,6 +75,32 @@ Phases, each printing one line per game with its own wall time:
      (``make_tb_policy``) on the card's facade against the cpu's, one
      model a game: the same stacks within 1 grey level, its frames from
      the single-frame kernel.
+ 14. Gridworld (the game with no frame kernel: its frames are the plain
+     render's, as in the JAX package): GRID_ENVS envs x GRID_ENGINE_STEPS
+     random steps, every engine state tensor bit-equal between cuda and
+     cpu; make_rl_env("gridworld", GRID_ENVS) for GRID_PIPE_STEPS steps on
+     both, obs within 1 grey level, rewards, dones and lives equal; ms an
+     agent step and the device-busy share (phase 7's window, a random cnn
+     policy); then ``run.main --alg=ppo
+     --env=GridWorldToyboxNoFrameskip-v4`` at GRID_ENVS envs, two updates
+     of GRID_NSTEPS steps: finite losses, the model saved and read back;
+ 15. obs modes, each game: make_batched_env(obs_mode=m) for m in
+     grayscale, rgba, rgb with auto_reset on and off, at OBS_EXACT_ENVS
+     envs x OBS_EXACT_STEPS steps exactly equal to the cpu's (obs, rewards,
+     dones); BatchedEnv equal to the functional env; each mode timed at
+     OBS_TIME_ENVS envs (ms a step, peak memory) beside obs_mode="none";
+     for the frame-kernel games, the pipeline steps with the engine's
+     render refused (its inner env renders nothing);
+ 16. state tools: fit_models on a Breakout trajectory played on the
+     card's facade, sample_state and write_state_json (equal to the cpu's
+     load), each committed seed-state fixture's predicate after load on
+     cuda, and extract_seed_state with the committed ppo1 model for
+     life_lost (at most SEED_STATE_FRAMES frames a seed): the predicate
+     holds on the state it returns; frame index and ms a frame;
+ 17. the gym surface (gym.make of the four namespaced ids,
+     wrap_deepmind(make_atari(...)), make_vec_env at OBS_TIME_ENVS envs),
+     only where gymnasium is installed; elsewhere one line says it was not
+     driven and why.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
@@ -84,6 +112,7 @@ CLI's log and model) go under build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import math
@@ -96,13 +125,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from toybox_tpu_torch import Toybox, run
 from toybox_tpu_torch.core.actions import ale_to_input
-from toybox_tpu_torch.envs.batched import make_batched_env
-from toybox_tpu_torch.envs.pipeline import make_rl_env
+from toybox_tpu_torch.envs.batched import BatchedEnv, make_batched_env
+from toybox_tpu_torch.envs.pipeline import FRAME_KERNEL_GAMES, make_rl_env
 from toybox_tpu_torch.games import amidar as am
 from toybox_tpu_torch.games import breakout as bk
+from toybox_tpu_torch.games import get_game
+from toybox_tpu_torch.games import gridworld as gw
 from toybox_tpu_torch.games import space_invaders as si
-from toybox_tpu_torch import run
+from toybox_tpu_torch.games.common import luma2d
+from toybox_tpu_torch.interventions.models import fit_models, sample_state
 from toybox_tpu_torch.ops import obs, render_amidar, render_cuda, render_si
 from toybox_tpu_torch.regress import full_f32, play_games
 from toybox_tpu_torch.rl import ppo
@@ -112,6 +145,8 @@ from toybox_tpu_torch.rl.eval_adapter import (checkpoint_head, eval_head,
 from toybox_tpu_torch.rl.models import RECURRENT_NETWORKS
 from toybox_tpu_torch.rl.policies import build_eval_policy, build_policy
 from toybox_tpu_torch.rl.test_envs import make_discrete_identity_env
+from toybox_tpu_torch.run_get_seed_state import (PREDICATES,
+                                                 extract_seed_state)
 from toybox_tpu_torch.sample_tests import get_scenarios
 from toybox_tpu_torch.sample_tests.families import overrides_for
 from toybox_tpu_torch.sample_tests.runner import capture_setup, run_all_gated
@@ -138,7 +173,17 @@ GATE_EPISODES, GATE_MAX_FRAMES = 2, 1000
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
 HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 64, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
+# the depths of phases 14 and 15 (pipeline and exact steps) are cut to
+# keep the whole run under 600 s (PERF.md, section 6)
+GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 200, 25, 32
+OBS_MODES = ("grayscale", "rgba", "rgb")
+OBS_EXACT_ENVS, OBS_EXACT_STEPS = 64, 10
+OBS_TIME_ENVS, OBS_STEPS = 1024, 20
+STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 5000, 100
+SEED_STATE_SEEDS = (0, 1, 2, 3)
+FIXTURES = ROOT / "tests" / "fixtures" / "seed_states"
 DEV = "cuda"
+T_START = time.perf_counter()
 PALLAS = "toybox_tpu/ops/render_pallas.py"
 
 
@@ -148,8 +193,9 @@ def check(ok: bool, msg: str) -> None:
 
 
 def phase(n: int, name: str, t0: float, detail: str) -> None:
-    print(f"phase {n} {name}: {detail} ({time.perf_counter() - t0:.2f} s)",
-          flush=True)
+    now = time.perf_counter()
+    print(f"phase {n} {name}: {detail} ({now - t0:.2f} s; "
+          f"{now - T_START:.0f} s in)", flush=True)
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -623,8 +669,9 @@ def _engine_start(g: Game, st, d):
 
 def engine_phase(g: Game) -> str:
     """Batched engine (with auto-reset) on cuda and on cpu, bit-equal."""
-    envs = {d: make_batched_env(g.name, ENGINE_ENVS, fast_auto_reset=True,
-                                device=d) for d in (DEV, "cpu")}
+    envs = {d: make_batched_env(g.name, ENGINE_ENVS, obs_mode="none",
+                                fast_auto_reset=True, device=d)
+            for d in (DEV, "cpu")}
     seeds = np.arange(ENGINE_ENVS) + 100
     states = {d: _engine_start(g, env.reset(torch.as_tensor(
         seeds, device=d))[0], d) for d, env in envs.items()}
@@ -775,9 +822,16 @@ def profile_phase(g: Game, state_dict, n: int, steps: int) -> str:
     """Device time of `steps` agent steps (policy + pipeline) at n envs,
     from torch.profiler's CUDA kernel records, against the same window's
     wall time measured without the profiler."""
+    env, _, p_step = _policy_run(g, state_dict, n, DEV)
+    return _profile_window(g.name, env, p_step, n, steps, g.kernel)
+
+
+def _profile_window(name: str, env, p_step, n: int, steps: int,
+                    kernel=None) -> str:
+    """profile_phase's window on a built pipeline and policy; the frame
+    kernel's time a step where ``kernel`` names one."""
     from torch.profiler import ProfilerActivity, profile
 
-    env, _, p_step = _policy_run(g, state_dict, n, DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
     st, _ = env.reset(torch.arange(n, device=DEV))
 
@@ -798,15 +852,18 @@ def profile_phase(g: Game, state_dict, n: int, steps: int) -> str:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        return (f"{g.name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent "
+        return (f"{name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent "
                 "step; device time not measured (no CUDA records)")
     busy = sum(e.time_range.elapsed_us() for e in kernels)
+    detail = (f"{name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent step, "
+              f"{len(kernels) / steps:.0f} device kernels/step, device busy "
+              f"{busy / steps:.0f} us/step ({100 * busy / wall_us:.1f}% of "
+              "the unprofiled step)")
+    if kernel is None:
+        return detail
     frame = sum(e.time_range.elapsed_us() for e in kernels
-                if g.kernel in e.name)
-    return (f"{g.name} {n} envs: {wall_us / steps / 1e3:.2f} ms/agent step, "
-            f"{len(kernels) / steps:.0f} device kernels/step, device busy "
-            f"{busy / steps:.0f} us/step ({100 * busy / wall_us:.1f}% of the "
-            f"unprofiled step), frame kernel {frame / steps:.1f} us/step")
+                if kernel in e.name)
+    return detail + f", frame kernel {frame / steps:.1f} us/step"
 
 
 def warp_pipeline_phase(g: Game) -> str:
@@ -1100,7 +1157,7 @@ def behavior_phase(g: Game, state_dict):
         consts = g.consts(cfg)
         tree = g.module.state_from_json(cfg, st_js)
         for n in BEHAVIOR_ENVS:
-            env = make_batched_env(g.name, n, config=cfg,
+            env = make_batched_env(g.name, n, config=cfg, obs_mode="none",
                                    fast_auto_reset=True, device=DEV)
             st, _ = env.reset_to(tree, torch.arange(n, device=DEV) + 1)
             start = st.game
@@ -1248,6 +1305,345 @@ def adapter_phase(path: Path, game: Game) -> str:
             f"{worst}, {single} single-frame launches")
 
 
+# ---------------------------------------------------------------------------
+# The env layer's other paths: Gridworld, the obs modes, the state tools and
+# the gym surface. None launches a frame kernel: Gridworld and the obs modes
+# render with the engines' plain ``render`` (as the JAX package renders them
+# with ``render``, not with a Pallas kernel).
+# ---------------------------------------------------------------------------
+
+def _ending_start(name: str, st, d):
+    """Every 4th env ends on its first step (Gridworld: one step left of
+    the goal, given RIGHT; the others: no lives left), so auto-resets run
+    inside a short window."""
+    game = st.game
+    n = game.lives.shape[0]
+    first = (torch.arange(n, device=d) % 4 == 0)
+    if name == "gridworld":
+        left_of_goal = torch.tensor([6, 5], dtype=torch.int32, device=d)
+        game = game.replace(player=torch.where(first[:, None], left_of_goal,
+                                               game.player))
+    else:
+        game = game.replace(lives=torch.where(
+            first, torch.zeros_like(game.lives), game.lives))
+    return dataclasses.replace(st, game=game)
+
+
+def _ending_actions(name: str, n_act: int, steps: int, n: int, seed: int):
+    r = np.random.default_rng(seed)
+    acts = r.integers(0, n_act, size=(steps, n))
+    if name == "gridworld":
+        acts[0, ::4] = 2                    # RIGHT (legal index 2)
+    return acts
+
+
+def gridworld_engine_phase() -> str:
+    """The Gridworld engine in the batched env on cuda and on cpu from the
+    same seeds and actions: every state tensor bit-equal."""
+    n, steps = GRID_ENVS, GRID_ENGINE_STEPS
+    envs = {d: make_batched_env("gridworld", n, obs_mode="none", device=d)
+            for d in (DEV, "cpu")}
+    states = {d: _ending_start("gridworld", env.reset(torch.arange(
+        n, device=d) + 100)[0], d) for d, env in envs.items()}
+    n_done = 0
+    for i, a in enumerate(_ending_actions("gridworld", 5, steps, n, 11)):
+        out = {}
+        for d, env in envs.items():
+            states[d], _, rew, done, _ = env.step(
+                states[d], torch.as_tensor(a, device=d))
+            out[d] = (rew, done)
+        if i % 10 == 9 or i == steps - 1:
+            for f in gw.FIELDS:
+                c, h = (getattr(states[d].game, f).cpu() for d in
+                        (DEV, "cpu"))
+                check(torch.equal(c, h), f"gridworld engine field {f} "
+                                         f"differs at step {i}")
+            check(torch.equal(states[DEV].seeds.cpu(), states["cpu"].seeds),
+                  "gridworld reseeds differ")
+        for k in (0, 1):
+            check(torch.equal(out[DEV][k].cpu(), out["cpu"][k]),
+                  f"gridworld reward/done differ at step {i}")
+        n_done += int(out["cpu"][1].sum())
+    check(n_done > 0, "no gridworld game ended")
+    return (f"engine {n} envs x {steps} steps bit-equal; {n_done} game "
+            f"overs, score {int(states['cpu'].game.score.sum())}")
+
+
+def gridworld_pipeline_phase() -> str:
+    """make_rl_env("gridworld") on cuda and on cpu (the max of two plain
+    grey frames, then the matmul warp): rewards, dones and lives equal,
+    observations within 1 grey level."""
+    n, steps = GRID_ENVS, GRID_PIPE_STEPS
+    envs = {d: make_rl_env("gridworld", n, device=d) for d in (DEV, "cpu")}
+    states = {}
+    for d, env in envs.items():
+        st, _ = env.reset(torch.arange(n, device=d))
+        states[d] = dataclasses.replace(
+            st, env=_ending_start("gridworld", st.env, d))
+    worst, dones, reward = 0, 0, 0.0
+    for i, a in enumerate(_ending_actions("gridworld", 5, steps, n, 12)):
+        out = {}
+        for d, env in envs.items():
+            states[d], o, rew, done, info = env.step(
+                states[d], torch.as_tensor(a, device=d))
+            out[d] = (o, rew, done, info["lives"])
+        for k in (1, 2, 3):
+            check(torch.equal(out[DEV][k].cpu(), out["cpu"][k]),
+                  f"gridworld pipeline reward/done/lives differ at step {i}")
+        worst = max(worst, int((out[DEV][0].cpu().int()
+                                - out["cpu"][0].int()).abs().max()))
+        dones += int(out["cpu"][2].sum())
+        reward += float(out["cpu"][1].sum())
+    check(worst <= 1, f"gridworld pipeline obs differ by {worst}")
+    check(dones > 0, "no gridworld episode ended in the pipeline")
+    return (f"pipeline {n} envs x {steps} steps: reward/done/lives equal "
+            f"({dones} dones, reward {reward}), obs max diff {worst}")
+
+
+def gridworld_cli_phase() -> str:
+    """``run.main --alg=ppo --env=GridWorldToyboxNoFrameskip-v4`` at
+    GRID_ENVS envs, two updates of GRID_NSTEPS steps: finite losses, the
+    policy saved and read back equal."""
+    path = SCRATCH / "gridworld.model"
+    log = SCRATCH / "gridworld_log"
+    n = GRID_ENVS
+    state = run.main(["--alg=ppo", "--env=GridWorldToyboxNoFrameskip-v4",
+                      f"--num_envs={n}",
+                      f"--num_timesteps={2 * n * GRID_NSTEPS * 4}",
+                      f"--nsteps={GRID_NSTEPS}", f"--save_path={path}",
+                      f"--log_path={log}", f"--device={DEV}"])
+    check(state.update == 2, f"gridworld CLI trained {state.update} updates")
+    module = build_policy((84, 84, 4), 5, "cnn", device="cpu")[0]
+    ppo.load_params(path, module)
+    for k, v in state.module.state_dict().items():
+        check(torch.equal(module.state_dict()[k], v.cpu()),
+              f"the saved gridworld policy differs in {k}")
+    with open(log / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == 2, f"progress.csv has {len(rows)} rows")
+    losses = {k: float(rows[-1][f"loss/{k}"]) for k in ppo.METRICS}
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"gridworld losses {losses}")
+    return (f"run.main gridworld {n} envs x nsteps {GRID_NSTEPS}: 2 updates, "
+            f"fps {rows[-1]['fps']}, last losses " + ", ".join(
+                f"{k} {v:.4g}" for k, v in losses.items())
+            + f"; {path.stat().st_size} B saved and read back equal")
+
+
+def gridworld_profile_phase() -> str:
+    """The Gridworld pipeline with a random cnn policy at GRID_ENVS envs:
+    ms per agent step and the device-busy share (phase 7's window)."""
+    env = make_rl_env("gridworld", GRID_ENVS, device=DEV)
+    _, p_step = build_eval_policy("ppo", env.obs_shape, env.num_actions,
+                                  "cnn", device=DEV)
+    return _profile_window("gridworld", env, p_step, GRID_ENVS,
+                           PROFILE_STEPS)
+
+
+def _obs_rollout(env, name, d, acts):
+    st, obs0 = env.reset(torch.arange(env.num_envs, device=d) + 3)
+    st = _ending_start(name, st, d)
+    out = [obs0]
+    for a in acts:
+        st, obs, rew, done, _ = env.step(st, torch.as_tensor(a, device=d))
+        out.append((obs, rew, done))
+    return out
+
+
+def _mode_of_rgba(mode: str, rgba: torch.Tensor) -> torch.Tensor:
+    """A mode's obs from the rgba frames, as the batched env defines it."""
+    if mode == "grayscale":
+        return luma2d(rgba)[..., None]
+    return rgba if mode == "rgba" else rgba[..., :3]
+
+
+def obs_modes_phase(name: str) -> str:
+    """make_batched_env(obs_mode=m) for m in OBS_MODES, auto_reset on and
+    off: at OBS_EXACT_ENVS envs x OBS_EXACT_STEPS steps obs, rewards and
+    dones
+    exactly equal to the cpu's (the cpu side renders rgba once and takes
+    each mode from it); BatchedEnv equal to the functional env; each mode
+    timed at OBS_TIME_ENVS envs on cuda (ms a step, peak memory), beside
+    obs_mode="none". For a frame-kernel game, the pipeline then steps on
+    cuda with the engine's render refused: its inner env renders
+    nothing."""
+    module = get_game(name)
+    n, steps = OBS_EXACT_ENVS, OBS_EXACT_STEPS
+    acts = _ending_actions(name, len(module.LEGAL_ACTIONS), steps, n, 13)
+    dones = 0
+    for auto in (True, False):
+        ref = _obs_rollout(make_batched_env(
+            name, n, obs_mode="rgba", auto_reset=auto, device="cpu"),
+            name, "cpu", acts)
+        for mode in OBS_MODES:
+            got = _obs_rollout(make_batched_env(
+                name, n, obs_mode=mode, auto_reset=auto, device=DEV),
+                name, DEV, acts)
+            check(torch.equal(got[0].cpu(), _mode_of_rgba(mode, ref[0])),
+                  f"{name} {mode} reset obs differ from the cpu's")
+            for i, (g, c) in enumerate(zip(got[1:], ref[1:])):
+                check(torch.equal(g[0].cpu(), _mode_of_rgba(mode, c[0])),
+                      f"{name} {mode} auto_reset={auto} obs differ at {i}")
+                for k in (1, 2):
+                    check(torch.equal(g[k].cpu(), c[k]),
+                          f"{name} {mode} auto_reset={auto} reward/done "
+                          f"differ at step {i}")
+        dones += sum(int(c[2].sum()) for c in ref[1:])
+    check(dones > 0, f"no {name} game ended in the obs-mode runs")
+    fns = make_batched_env(name, n, device=DEV)
+    benv = BatchedEnv(name, n, seed=3, device=DEV)
+    st, obs = fns.reset(torch.arange(n, device=DEV) + 3)
+    check(torch.equal(benv.reset(), obs), f"{name} BatchedEnv reset differs")
+    for a in acts[:10]:
+        a = torch.as_tensor(a, device=DEV)
+        st, obs, rew, done, _ = fns.step(st, a)
+        bobs, brew, bdone, _ = benv.step(a)
+        check(torch.equal(bobs, obs) and torch.equal(brew, rew)
+              and torch.equal(bdone, done), f"{name} BatchedEnv differs")
+    times = []
+    for mode in ("none",) + OBS_MODES:
+        env = make_batched_env(name, OBS_TIME_ENVS, obs_mode=mode,
+                               device=DEV)
+        st, _ = env.reset(torch.arange(OBS_TIME_ENVS, device=DEV))
+        a = torch.ones(OBS_TIME_ENVS, dtype=torch.long, device=DEV)
+        for _ in range(2):
+            st, *_ = env.step(st, a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        for _ in range(OBS_STEPS):
+            st, obs, *_ = env.step(st, a)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / OBS_STEPS
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        times.append(f"{mode} {ms:.2f} ms/step (peak +{peak:.0f} MiB)")
+        del st, obs, env
+    detail = (f"{name}: exact at {n} envs x {steps} steps on "
+              f"{'/'.join(OBS_MODES)} x auto_reset on/off ({dones} dones), "
+              f"BatchedEnv equal; at {OBS_TIME_ENVS} envs: "
+              + ", ".join(times))
+    if name in FRAME_KERNEL_GAMES:
+        calls = []
+        orig = module.render
+        module.render = lambda *args: calls.append(1) or orig(*args)
+        try:
+            env = make_rl_env(name, PIPELINE_ENVS, device=DEV)
+            st, _ = env.reset(torch.arange(PIPELINE_ENVS, device=DEV))
+            for _ in range(5):
+                st, *_ = env.step(st, torch.ones(PIPELINE_ENVS,
+                                                 dtype=torch.long,
+                                                 device=DEV))
+        finally:
+            module.render = orig
+        check(not calls, f"the {name} pipeline called render {len(calls)} "
+                         "times")
+        detail += "; the pipeline's inner env renders nothing"
+    return detail
+
+
+def state_tools_phase() -> str:
+    """fit_models on a STATE_FRAMES-state Breakout trajectory played on the
+    card's facade, sample_state and write_state_json (the sampled state
+    loads and steps, its JSON equal to the cpu facade's load); each
+    committed seed-state fixture's predicate after load on cuda; then
+    extract_seed_state with the committed ppo1 model for life_lost,
+    capped at SEED_STATE_FRAMES frames, at the seeds in turn until one
+    returns a state (the trained agent may keep its lives longer than the
+    cap): the predicate holds on the state it returns."""
+    tb = Toybox("breakout", device=DEV)
+    tb.apply_ale_action(1)
+    states = []
+    for i in range(STATE_FRAMES):
+        for _ in range(5):
+            tb.apply_ale_action(3 if i % 2 else 4)
+        states.append(tb.to_state_json())
+    models = fit_models(states)
+    for queries in (("paddle.position.x",), ()):     # one field, then all
+        new = sample_state(models, states[0], *queries,
+                           rng=np.random.default_rng(0))
+        loaded = {}
+        for d in (DEV, "cpu"):
+            t = Toybox("breakout", device=d)
+            t.write_state_json(new)
+            loaded[d] = t.to_state_json()
+            t.apply_ale_action(0)
+        check(loaded[DEV] == loaded["cpu"], "a sampled state loads "
+                                            "differently on the card")
+    check(sample_state(models, states[0], "paddle.position.x",
+                       rng=np.random.default_rng(0))["lives"]
+          == states[0]["lives"], "sampling one field changed another")
+    for path in sorted(FIXTURES.glob("breakout_*_seed0.json")):
+        pred = path.name[len("breakout_"):-len("_seed0.json")]
+        t = Toybox("breakout", withstate=json.loads(path.read_text()),
+                   device=DEV)
+        check(PREDICATES[pred](t), f"{pred} does not hold after loading "
+                                   f"{path.name} on the card")
+    weights = load_state_dict(MODELS / "Breakout.ppo1.model")
+    tries = []
+    for seed in SEED_STATE_SEEDS:
+        policy = make_tb_policy("ppo1", "cnn", weights, "breakout",
+                                seed=seed, device=DEV)
+        t1 = time.perf_counter()
+        state, frame = extract_seed_state(
+            "breakout", "life_lost", max_frames=SEED_STATE_FRAMES,
+            seed=seed, policy=policy, device=DEV)
+        dt = time.perf_counter() - t1
+        played = frame + 1 if state is not None else SEED_STATE_FRAMES
+        tries.append(f"seed {seed}: " + (
+            f"frame {frame}" if state is not None else "never held")
+            + f" in {dt:.1f} s ({dt * 1e3 / played:.2f} ms/frame)")
+        if state is not None:
+            break
+    check(state is not None, "life_lost never held in "
+                             f"{SEED_STATE_FRAMES} frames at seeds "
+                             f"{SEED_STATE_SEEDS}")
+    check(PREDICATES["life_lost"](Toybox("breakout", withstate=state,
+                                         device=DEV)),
+          "life_lost does not hold on the extracted state")
+    return (f"{len(models)} models from {STATE_FRAMES} states, a sampled "
+            f"state equal on load; fixtures hold; ppo1 life_lost, at most "
+            f"{SEED_STATE_FRAMES} frames a seed: " + "; ".join(tries))
+
+
+def gym_phase() -> str:
+    """The gymnasium surface on the card: gym.make of the four namespaced
+    ids, wrap_deepmind(make_atari(...)) GYM_STEPS steps, and
+    make_vec_env(use_batched=True) at OBS_TIME_ENVS envs x OBS_STEPS
+    steps."""
+    import gymnasium
+
+    from toybox_tpu_torch.envs import GAME_CLASSES, SUFFIX, gym_id
+    from toybox_tpu_torch.envs.vec_env import make_vec_env
+    from toybox_tpu_torch.envs.wrappers import make_atari, wrap_deepmind
+
+    for game in GAME_CLASSES:
+        env = gymnasium.make(gym_id(game + SUFFIX), device=DEV)
+        obs, _ = env.reset(seed=0)
+        for _ in range(5):
+            obs, *_ = env.step(0)
+        check(obs.shape == env.observation_space.shape,
+              f"{game} obs {obs.shape}")
+        env.close()
+    env = wrap_deepmind(make_atari("BreakoutToyboxNoFrameskip-v4",
+                                   device=DEV), frame_stack=True)
+    env.reset(seed=0)
+    for i in range(GYM_STEPS):
+        obs, _, term, trunc, _ = env.step(i % 4)
+        if term or trunc:
+            env.reset()
+    check(np.asarray(obs).shape == (84, 84, 4), "deepmind stack shape")
+    venv = make_vec_env("BreakoutToyboxNoFrameskip-v4", OBS_TIME_ENVS,
+                        seed=0, device=DEV)
+    venv.reset()
+    t1 = time.perf_counter()
+    for _ in range(OBS_STEPS):
+        obs, *_ = venv.step(np.ones(OBS_TIME_ENVS, np.int64))
+    ms = (time.perf_counter() - t1) * 1e3 / OBS_STEPS
+    return (f"4 namespaced ids made and stepped; wrap_deepmind {GYM_STEPS} "
+            f"steps; make_vec_env {OBS_TIME_ENVS} envs {ms:.2f} ms/step")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1372,6 +1768,33 @@ def main() -> int:
         phase(13, "heads", t0, adapter_phase(
             MODELS / f"{g.model.split('.')[0]}.{suffix}.model", g))
     phase(13, "heads", t13, "all heads")
+
+    # 14. Gridworld: the engine, the pipeline, the PPO CLI, the profile
+    t0 = time.perf_counter()
+    phase(14, "gridworld", t0, gridworld_engine_phase() + "; "
+          + gridworld_pipeline_phase() + "; " + gridworld_profile_phase())
+    t0 = time.perf_counter()
+    phase(14, "gridworld", t0, gridworld_cli_phase())
+
+    # 15. the batched env's obs modes, on every game
+    for name in [g.name for g in GAMES] + ["gridworld"]:
+        t0 = time.perf_counter()
+        phase(15, "obs modes", t0, obs_modes_phase(name))
+
+    # 16. the state tools: samplers, fixtures, seed-state extraction
+    t0 = time.perf_counter()
+    phase(16, "state tools", t0, state_tools_phase())
+
+    # 17. the gym surface, where gymnasium is installed
+    t0 = time.perf_counter()
+    try:
+        import gymnasium  # noqa: F401
+    except ImportError:
+        print("phase 17 gym: not driven: gymnasium is not installed on "
+              "this machine; the CPU tests (tests/test_torch_gym_env.py, "
+              "test_torch_vec_env.py) hold the gym surface", flush=True)
+    else:
+        phase(17, "gym", t0, gym_phase())
 
     kernels = []
     for g in GAMES:

@@ -51,7 +51,8 @@ def count(game: str, n: int, device: str) -> dict:
 
     module = get_game(game)
     cfg = module.default_config(device)
-    inner = make_batched_env(game, n, config=cfg, fast_auto_reset=True)
+    inner = make_batched_env(game, n, config=cfg, obs_mode="none",
+                             fast_auto_reset=True)
     est, _ = inner.reset(torch.arange(n, device=device))
     fire = torch.ones(n, dtype=torch.long, device=device)
     for _ in range(3):

@@ -100,8 +100,8 @@ def test_auto_reset_reseed_matches_jax(fast):
     seeds = np.arange(n, dtype=np.uint32) + 7
     jenv = j_make_batched_env("breakout", n, obs_mode="none",
                               fast_auto_reset=fast)
-    tenv = t_make_batched_env("breakout", n, fast_auto_reset=fast,
-                              device="cpu")
+    tenv = t_make_batched_env("breakout", n, obs_mode="none",
+                              fast_auto_reset=fast, device="cpu")
     jst, _ = jenv.reset(jnp.asarray(seeds))
     tst, _ = tenv.reset(torch.as_tensor(seeds.astype(np.int64)))
     # one life left, so games end (and reset) inside the rollout

@@ -1,9 +1,10 @@
 """The port's ``ctoybox`` facade against the JAX package's: the same seed
 and action script give the same state JSON, frames (grey and RGBA),
 score, lives, level and native queries; JSON written into one facade
-reads back the same, in both packages; Gridworld is refused as not yet
-ported. Also the replay of the deep goldens that start from a doctored
-state, which tests/test_torch_deep_*.py run through the port's facade."""
+reads back the same, in both packages; every game of the JAX package is
+in the port's registry and an unknown game raises. Also the replay of the
+deep goldens that start from a doctored state, which
+tests/test_torch_deep_*.py run through the port's facade."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 
 import toybox_tpu
+import toybox_tpu.games
 import toybox_tpu_torch
 from tests.test_goldens import _digest
 from tests.test_torch_codecs import one_torch_thread  # noqa: F401
@@ -123,13 +125,16 @@ def test_set_seed_and_input_match_jax():
     assert ttb.rstate is None
 
 
-def test_gridworld_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="gridworld"):
-        toybox_tpu_torch.Toybox("gridworld", device="cpu")
-    with pytest.raises(NotImplementedError, match="gridworld"):
-        toybox_tpu_torch.get_game("gridworld")
-    with pytest.raises(ValueError):
+def test_every_game_is_ported_and_unknown_games_raise():
+    tb = toybox_tpu_torch.Toybox("gridworld", device="cpu")
+    assert tb.get_lives() == 1 and tb.get_state().shape == (112, 144, 1)
+    assert set(toybox_tpu_torch.GAMES) == set(toybox_tpu.games.GAMES)
+    for game in toybox_tpu.games.GAMES:
+        assert toybox_tpu_torch.get_game(game).GAME_NAME == game
+    with pytest.raises(ValueError, match="pong"):
         toybox_tpu_torch.get_game("pong")
+    with pytest.raises(ValueError, match="pong"):
+        toybox_tpu_torch.Toybox("pong", device="cpu")
 
 
 def test_save_frame_image_writes_the_frame(tmp_path):

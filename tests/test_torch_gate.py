@@ -151,7 +151,7 @@ def test_auto_reset_after_reset_to_resets_step_constant_fields():
     jcfg, tcfg = jmod.default_config(), tmod.default_config("cpu")
     n, noop = 2, np.zeros(2, np.int32)
     seeds = np.array([8, 9], np.uint32)
-    tenv = make_batched_env("breakout", n, config=tcfg,
+    tenv = make_batched_env("breakout", n, config=tcfg, obs_mode="none",
                             fast_auto_reset=True, device="cpu")
     tst, _ = tenv.reset_to(tmod.state_from_json(tcfg, js),
                            torch.as_tensor(seeds.astype(np.int64)),
@@ -211,7 +211,8 @@ def test_pipeline_auto_reset_after_reset_to_matches_full_reference():
 def test_reset_to_reseeds_each_env():
     tmod = t_get_game("breakout")
     tcfg = tmod.default_config("cpu")
-    env = make_batched_env("breakout", 3, config=tcfg, device="cpu")
+    env = make_batched_env("breakout", 3, config=tcfg, obs_mode="none",
+                           device="cpu")
     tree = tmod.new_game(tcfg, torch.tensor([5]))
     st, _ = env.reset_to(tree, torch.tensor([1, 2, 3]))
     assert len({tuple(r) for r in st.game.rng.tolist()}) == 3

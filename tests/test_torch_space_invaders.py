@@ -140,8 +140,8 @@ def jax_auto_reset_run():
 def test_auto_reset_matches_jax(jax_auto_reset_run, fast):
     seeds, acts, jrun = jax_auto_reset_run
     n = len(seeds)
-    tenv = t_make_batched_env("space_invaders", n, fast_auto_reset=fast,
-                              device="cpu")
+    tenv = t_make_batched_env("space_invaders", n, obs_mode="none",
+                              fast_auto_reset=fast, device="cpu")
     tst, _ = tenv.reset(torch.as_tensor(seeds.astype(np.int64)))
     tst = dataclasses.replace(tst, game=tst.game.replace(
         lives=torch.ones(n, dtype=torch.int32)))

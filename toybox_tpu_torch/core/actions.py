@@ -1,5 +1,6 @@
 """ALE 18-action set and action -> Input decoding (port of
-toybox_tpu.core.actions: ``ale_to_input`` and the legal action table)."""
+toybox_tpu.core.actions: ``ale_to_input``, the legal action table and the
+action names)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,19 @@ ACTION_MEANING = {
     16: "DOWNRIGHTFIRE",
     17: "DOWNLEFTFIRE",
 }
+
+ACTION_LOOKUP = {v: k for k, v in ACTION_MEANING.items()}
+
+NOOP_STR = "NOOP"
+FIRE_STR = "FIRE"
+UP_STR = "UP"
+RIGHT_STR = "RIGHT"
+LEFT_STR = "LEFT"
+DOWN_STR = "DOWN"
+UPFIRE_STR = "UPFIRE"
+RIGHTFIRE_STR = "RIGHTFIRE"
+LEFTFIRE_STR = "LEFTFIRE"
+DOWNFIRE_STR = "DOWNFIRE"
 
 
 def _build_table() -> np.ndarray:

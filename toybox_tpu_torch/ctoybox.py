@@ -99,10 +99,13 @@ class Toybox:
         self.rstate = self.rsimulator.new_game()
 
     def set_seed(self, seed: int) -> None:
-        """Re-seed the config's rng (the next new_game takes it)."""
-        words = _rng.seed(torch.tensor(int(seed) & _rng.MASK32))
-        self.rsimulator.config = dataclasses.replace(
-            self.rsimulator.config, rand=tuple(words.tolist()))
+        """Re-seed the config's rng (the next new_game takes it); a config
+        with no rng of its own (Gridworld's) is left as it is."""
+        cfg = self.rsimulator.config
+        if hasattr(cfg, "rand"):
+            words = _rng.seed(torch.tensor(int(seed) & _rng.MASK32))
+            self.rsimulator.config = dataclasses.replace(
+                cfg, rand=tuple(words.tolist()))
 
     def close(self) -> None:
         self.rstate = None

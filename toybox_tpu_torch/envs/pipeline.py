@@ -3,7 +3,9 @@
 
 - skip-4 stepping, where only the last two of every four frames are
   rendered, by the game's fused max-pool frame kernel (ops/render_cuda.py,
-  render_si.py, render_amidar.py);
+  render_si.py, render_amidar.py); a game with no frame kernel
+  (Gridworld, as in the JAX package) takes the max of two
+  ``luma2d(render)`` frames, in plain torch ops;
 - the 84x84 bilinear warp as two f32 matmuls, or with
   ``inkernel_warp=True`` inside the fused frame kernel (the reset frame is
   still warped by the matmuls, as in the JAX package);
@@ -25,6 +27,7 @@ import torch
 
 from toybox_tpu_torch.envs.batched import BatchedEnvFns, make_batched_env
 from toybox_tpu_torch.games import get_game
+from toybox_tpu_torch.games.common import luma2d
 from toybox_tpu_torch.ops import obs as obs_ops
 from toybox_tpu_torch.ops import render_amidar, render_cuda, render_si
 
@@ -39,6 +42,8 @@ _RENDERERS = {
     "amidar": (render_amidar.make_amidar_gray_renderer,
                render_amidar.make_amidar_gray_maxpool_renderer),
 }
+#: the games whose frames the pipeline renders with a CUDA frame kernel
+FRAME_KERNEL_GAMES = tuple(_RENDERERS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,27 +68,47 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
     where done marks life loss under episodic_life (the env auto-resets
     itself on true game over). ``inkernel_warp`` warps each step's
     max-pooled frame inside the frame kernel (one launch per step, only
-    [N, 84, 84] written) instead of with two matmuls after it."""
+    [N, 84, 84] written) instead of with two matmuls after it; for a
+    game with no frame kernel it raises ValueError."""
     if skip < 2:
         raise ValueError("make_rl_env requires skip >= 2 (the last two "
                          "frames are always rendered for the max-pool)")
     module = get_game(game_name)
-    if game_name not in _RENDERERS:
-        raise ValueError(f"no frame kernel for {game_name!r} yet")
     cfg = config if config is not None else module.default_config(device)
     dev = cfg.device
     inner = make_batched_env(game_name, num_envs, config=cfg,
-                             fast_auto_reset=True)
-    factory, factory2 = _RENDERERS[game_name]
-    render_gray = factory(cfg)
-    warp = obs_ops.make_warp(module.HEIGHT, module.WIDTH, frame_size, dev)
-    if inkernel_warp:
-        render_max_warp = factory2(cfg, warp_to=frame_size)
+                             obs_mode="none", fast_auto_reset=True)
+    if game_name in _RENDERERS:
+        factory, factory2 = _RENDERERS[game_name]
+        render_gray = factory(cfg)
+        warp = obs_ops.make_warp(module.HEIGHT, module.WIDTH, frame_size,
+                                 dev)
+        if inkernel_warp:
+            render_max_warp = factory2(cfg, warp_to=frame_size)
+        else:
+            render_max = factory2(cfg)
+
+            def render_max_warp(g1, g2):
+                return warp(render_max(g1, g2))
     else:
-        render_max = factory2(cfg)
+        if inkernel_warp:
+            raise ValueError(f"inkernel_warp: {game_name!r} has no frame "
+                             f"kernel (only {', '.join(FRAME_KERNEL_GAMES)})")
+        warps = {}
+
+        def render_gray(game):
+            return luma2d(module.render(cfg, game))
+
+        def warp(frames):
+            """The matmul warp built for the frame's own size (a config
+            may give another grid than the default's)."""
+            h, w = frames.shape[-2:]
+            if (h, w) not in warps:
+                warps[h, w] = obs_ops.make_warp(h, w, frame_size, dev)
+            return warps[h, w](frames)
 
         def render_max_warp(g1, g2):
-            return warp(render_max(g1, g2))
+            return warp(torch.maximum(render_gray(g1), render_gray(g2)))
 
     def restart(frame):
         return frame[:, None].expand(-1, frame_stack, -1, -1)

@@ -1,18 +1,14 @@
 """Game engines and their registry (port of toybox_tpu.games): Breakout,
-Space Invaders and Amidar; Gridworld is not ported yet."""
+Space Invaders, Amidar and Gridworld."""
 
-from toybox_tpu_torch.games import amidar, breakout, space_invaders
+from toybox_tpu_torch.games import amidar, breakout, gridworld, space_invaders
 
 GAMES = {"breakout": breakout, "space_invaders": space_invaders,
-         "amidar": amidar}
-NOT_PORTED = ("gridworld",)
+         "amidar": amidar, "gridworld": gridworld}
 
 
 def get_game(name: str):
-    """The engine module of a ported game."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"game {name!r} is not ported yet; have "
-                                  f"{sorted(GAMES)}")
+    """The engine module of a game."""
     try:
         return GAMES[name]
     except KeyError:

@@ -218,8 +218,8 @@ class BaseMixin(ABC):
 
     def sample(self, *queries):
         raise NotImplementedError(
-            "sampling requires models (interventions/models.py), which "
-            "the port does not have yet")
+            "sampling requires models; see "
+            "toybox_tpu_torch.interventions.models")
 
     def make_models(self, data):
         raise NotImplementedError

@@ -27,7 +27,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from toybox_tpu_torch.envs.pipeline import make_rl_env
+from toybox_tpu_torch.envs.pipeline import FRAME_KERNEL_GAMES, make_rl_env
 from toybox_tpu_torch.regress import full_f32
 from toybox_tpu_torch.rl.checkpoint import (load_flax_tree, params_from_flax,
                                             params_to_flax, save_flax_tree)
@@ -406,10 +406,11 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
     """Train PPO for total_timesteps env frames; returns the PPOState.
 
     Without ``env`` it builds ``make_rl_env(game, num_envs,
-    inkernel_warp=True)`` on ``device``: each step's frame is warped
-    inside the fused frame kernel, which on the H100 takes less time than
-    the fused kernel and two matmuls (PERF.md). TF32 is turned off, as the
-    JAX reference computes in f32."""
+    inkernel_warp=True)`` on ``device`` for a game with a frame kernel:
+    each step's frame is warped inside the fused frame kernel, which on
+    the H100 takes less time than the fused kernel and two matmuls
+    (PERF.md); Gridworld's frames take the plain render and the matmul
+    warp. TF32 is turned off, as the JAX reference computes in f32."""
     if mesh is not None:
         raise NotImplementedError("mesh=: the distributed layer is not "
                                   "ported yet (ROADMAP.md §1)")
@@ -417,7 +418,8 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
         raise TypeError(f"learn() got unexpected arguments {sorted(extra)}")
     full_f32()
     env_fns = env if env is not None else make_rl_env(
-        game, num_envs, inkernel_warp=True, device=device)
+        game, num_envs, inkernel_warp=game in FRAME_KERNEL_GAMES,
+        device=device)
     nbatch = env_fns.num_envs * nsteps
     fpstep = getattr(env_fns, "frames_per_step", 1)
     total_updates = max(int(total_timesteps) // (nbatch * fpstep), 1)

@@ -102,9 +102,28 @@ Phases, each printing one line per game with its own wall time:
      only where gymnasium is installed; elsewhere one line says it was not
      driven and why.
 
+ 18. learners (a main path of each): ``run.main`` trains and saves, on
+     the pipeline's in-kernel warp, a2c with cnn at its recipe (Breakout,
+     32 envs x nsteps 5, one block of 64 updates), a2c with cnn_lstm (4
+     updates), ppo with cnn_lstm (one update at the PPO recipe, 1 024 envs
+     x nsteps 128, 4 x 4 minibatches), ppo with cnn_lnlstm on Space
+     Invaders (one update at nsteps 32) and acktr at its recipe (32 envs x
+     nsteps 20, invert_every 16, kfac_clip 0.01, 2 updates), the launch
+     counts set to 0 just before each and read just after: the game's
+     single and warped fused kernels must have launched (the warp once an
+     agent step); ms an update, collect and optimize timed apart to a
+     sync; the device-busy share of one more collect (at most
+     LEARNER_PROFILE_ENVS envs) and optimize; frames/s and the recipe's
+     projected hours; each saved file read back through
+     ``load_eval_params`` equal. Then the K-FAC inverses timed alone, and
+     one update of each learner on cuda against cpu from the same params
+     and batch (LEARNER_CHECK_ENVS envs): params within each learner's
+     stated tolerance.
+
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
-phase 13's serve chunks), the total time, and as the last line
+phase 13's serve chunks, ``learner_launches`` summed over phase 18's
+runs), the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -167,19 +186,20 @@ WARP = 84
 THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 100
 ENGINE_ENVS, ENGINE_STEPS = 256, 200
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
-PROFILE_STEPS = 10
+PROFILE_STEPS = 5
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
 GATE_EPISODES, GATE_MAX_FRAMES = 2, 1000
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
-HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 64, 16
+HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 32, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
-# the depths of phases 14 and 15 (pipeline and exact steps) are cut to
-# keep the whole run under 600 s (PERF.md, section 6)
+# the depths of phases 14 and 15 (pipeline and exact steps), of phase 7's
+# profile windows, phase 13's serve chunks and phase 16's extraction are
+# cut to keep the whole run under 600 s (PERF.md, section 6)
 GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 200, 25, 32
 OBS_MODES = ("grayscale", "rgba", "rgb")
 OBS_EXACT_ENVS, OBS_EXACT_STEPS = 64, 10
 OBS_TIME_ENVS, OBS_STEPS = 1024, 20
-STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 5000, 100
+STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 2500, 100
 SEED_STATE_SEEDS = (0, 1, 2, 3)
 FIXTURES = ROOT / "tests" / "fixtures" / "seed_states"
 DEV = "cuda"
@@ -1644,6 +1664,293 @@ def gym_phase() -> str:
             f"steps; make_vec_env {OBS_TIME_ENVS} envs {ms:.2f} ms/step")
 
 
+# ---------------------------------------------------------------------------
+# 18. The on-policy learners after PPO: a2c (and recurrent a2c), recurrent
+# PPO and ACKTR with K-FAC, through run.main at the published widths.
+# ---------------------------------------------------------------------------
+
+#: (label, game, run.main arguments, updates, nsteps, eval head (alg,
+#: network)); each run's env is the pipeline's in-kernel warp
+LEARNERS = (
+    ("a2c cnn", "breakout",
+     ["--alg=a2c", "--num_envs=32", "--updates_per_jit=64",
+      "--log_interval=64"], 64, 5, ("a2c", "cnn")),
+    ("a2c cnn_lstm", "breakout",
+     ["--alg=a2c", "--network=cnn_lstm", "--num_envs=32",
+      "--updates_per_jit=4", "--log_interval=4"], 4, 5,
+     ("a2c", "cnn_lstm")),
+    ("ppo cnn_lstm", "breakout",
+     ["--alg=ppo", "--network=cnn_lstm", "--num_envs=1024"], 1, 128,
+     ("ppo", "cnn_lstm")),
+    ("ppo cnn_lnlstm", "space_invaders",
+     ["--alg=ppo", "--network=cnn_lnlstm", "--num_envs=1024",
+      "--nsteps=32"], 1, 32, ("ppo", "cnn_lnlstm")),
+    ("acktr", "breakout",
+     ["--alg=acktr", "--num_envs=32", "--updates_per_jit=2",
+      "--log_interval=2", "--invert_every=16", "--kfac_clip=0.01"], 2, 20,
+     ("acktr", "cnn")),
+)
+#: each recipe's frames (docs/TRAINING.md, the Breakout rows)
+RECIPE_FRAMES = {"a2c cnn": 60e6, "a2c cnn_lstm": 120e6,
+                 "ppo cnn_lstm": 120e6, "ppo cnn_lnlstm": 120e6,
+                 "acktr": 640e6}
+LEARNER_PROFILE_ENVS = 32        # collect is profiled up to this width
+LEARNER_CHECK_ENVS = 8           # the cuda-against-cpu updates
+A2C_ATOL, A2C_LSTM_ATOL, PPO_LSTM_ATOL, ACKTR_ATOL = 1e-5, 1e-5, 1e-5, 1e-6
+
+
+class _TimedSteps:
+    """Times every train_step of the learners (all are ppo.TrainStep:
+    ``collect``, then ``optimize``) on the host clock, each half to a
+    sync, and keeps the last step's TrainStep, state and batch."""
+
+    def __enter__(self):
+        self.rows, self.last = [], None
+        self.call = ppo.TrainStep.__call__
+        rows = self
+
+        def timed(step, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collected = step.collect(state)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step.optimize(state, collected)
+            torch.cuda.synchronize()
+            rows.rows.append((t1 - t0, time.perf_counter() - t1))
+            rows.last = (step, state, collected)
+            return out
+
+        ppo.TrainStep.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        ppo.TrainStep.__call__ = self.call
+
+
+def _busy(fn, label: str) -> str:
+    """``label``'s device kernels and busy share over fn() to a sync under
+    torch.profiler, tracing the device only (the host's op records of a
+    100 000-kernel window take the profiler tens of seconds to read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e6
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ks:
+        return f"{label}: device time not measured (no CUDA records)"
+    busy = sum(e.time_range.elapsed_us() for e in ks)
+    return (f"{label} {len(ks)} kernels, busy {busy:.0f} of {wall:.0f} us "
+            f"({100 * busy / wall:.1f}%)")
+
+
+def learner_run(label, game, args, updates, nsteps, head):
+    """A main path: run.main trains ``updates`` updates and saves the
+    policy, the launch counts set to 0 just before and read just after;
+    each update's collect and optimize timed apart. Then the saved file
+    through ``load_eval_params`` (equal params), and one more collect (at
+    most LEARNER_PROFILE_ENVS envs) and optimize under the profiler.
+    Returns (launches, detail, state)."""
+    from toybox_tpu_torch.rl.eval_adapter import load_eval_params
+
+    g = next(x for x in GAMES if x.name == game)
+    path = SCRATCH / f"{label.replace(' ', '_')}.model"
+    log_dir = SCRATCH / label.replace(" ", "_")
+    env_id = {"breakout": "Breakout", "space_invaders": "SpaceInvaders",
+              "amidar": "Amidar"}[game] + "ToyboxNoFrameskip-v4"
+    n_envs = int(next(a for a in args if a.startswith("--num_envs="))
+                 .split("=")[1])
+    frames = updates * n_envs * nsteps * 4
+    _reset_launches()
+    with _TimedSteps() as timed:
+        state = run.main(args + [
+            f"--env={env_id}", f"--num_timesteps={frames}",
+            f"--save_path={path}", f"--log_path={log_dir}",
+            f"--device={DEV}"])
+        torch.cuda.synchronize()
+    launches = dict(render_cuda.LAUNCHES)
+    warp, single = g.kernel + "_fused_warp", g.kernel
+    check(state.update == updates == len(timed.rows),
+          f"{label} trained {state.update} updates, timed {len(timed.rows)}")
+    check(launches[warp] == updates * nsteps,
+          f"{label}: {warp} launched {launches[warp]} times in {updates} "
+          f"updates of {nsteps} steps: {launches}")
+    check(launches[single] > 0, f"{label}: {single} never launched")
+    rows = list(csv.DictReader(
+        (log_dir / "progress.csv").read_text().splitlines()))
+    check(len(rows) >= 1, f"{label} logged no row")
+    for k in ("policy_loss", "value_loss", "policy_entropy"):
+        check(math.isfinite(float(rows[-1][k])), f"{label} {k} = "
+                                                  f"{rows[-1][k]}")
+    module = load_eval_params(*head, path, game, device=DEV)
+    for k, v in state.module.state_dict().items():
+        check(torch.equal(module.state_dict()[k], v),
+              f"{label}: the saved file differs in {k}")
+    steady = timed.rows[1:] or timed.rows
+    collect = sum(r[0] for r in steady) / len(steady)
+    optimize = sum(r[1] for r in steady) / len(steady)
+    per_update = collect + optimize
+    first = ("" if len(timed.rows) == 1 else "; the first: collect "
+             f"{1e3 * timed.rows[0][0]:.1f}, optimize "
+             f"{1e3 * timed.rows[0][1]:.1f}")
+    nbatch = n_envs * nsteps
+    step, st, collected = timed.last
+    shares = []
+    if n_envs <= LEARNER_PROFILE_ENVS:
+        out = []
+        shares.append(_busy(lambda: out.append(step.collect(st)), "collect"))
+        collected = out[0]
+    else:
+        shares.append(f"collect ({n_envs} envs) not profiled")
+    shares.append(_busy(lambda: step.optimize(st, collected), "optimize"))
+    fps = nbatch * 4 / per_update
+    detail = (f"{label} on {game}, {n_envs} envs x nsteps {nsteps}, "
+              f"{updates} updates: ms an update {1e3 * per_update:.1f} "
+              f"(collect {1e3 * collect:.1f}, optimize {1e3 * optimize:.1f};"
+              f" over {len(steady)} updates{first}), {fps:.0f} frames/s, the "
+              f"recipe's {RECIPE_FRAMES[label]:.0f} frames in "
+              f"{RECIPE_FRAMES[label] / fps / 3600:.2f} h; {'; '.join(shares)}"
+              f"; launches {single} {launches[single]}, {warp} "
+              f"{launches[warp]} ({launches[warp] / updates:.0f} an update); "
+              f"last row " + ", ".join(f"{k} {float(rows[-1][k]):.4g}" for k in
+                                       ("policy_loss", "value_loss",
+                                        "policy_entropy", "eprewmean"))
+              + f"; {path.stat().st_size} B saved, read back equal")
+    return launches, detail, state
+
+
+def _cpu_batch(make, **kw):
+    """(train_step, state, collected) of a learner on LEARNER_CHECK_ENVS
+    Breakout envs on the cpu: one collect."""
+    env = make_rl_env("breakout", LEARNER_CHECK_ENVS, device="cpu")
+    out = make(env, device="cpu", **kw)
+    state = out[0](0)
+    return out[1], state, out[1].collect(state)
+
+
+def _diff(mods: dict, before: dict) -> tuple:
+    after = {d: {k: v.cpu() for k, v in m.state_dict().items()}
+             for d, m in mods.items()}
+    moved = max(float((after["cpu"][k] - before[k]).abs().max())
+                for k in before)
+    diff = max(float((after[DEV][k] - after["cpu"][k]).abs().max())
+               for k in before)
+    return moved, diff
+
+
+def learner_update_phase() -> str:
+    """One update of each learner on cuda and on cpu from the same params
+    and batch (a cpu collect at LEARNER_CHECK_ENVS envs): params within
+    the learner's tolerance."""
+    from toybox_tpu_torch.rl import a2c, acktr, ppo_recurrent
+
+    out = []
+
+    def compare(label, mods, before, atol, run_one):
+        for d, m in mods.items():
+            run_one(d, m)
+        moved, diff = _diff(mods, before)
+        check(moved > 10 * atol, f"{label}: the update moved the params by "
+                                 f"only {moved}")
+        check(diff <= atol, f"{label}: cuda and cpu updates differ by {diff}")
+        out.append(f"{label} moved {moved:.3g}, cuda vs cpu {diff:.3g} "
+                   f"(tolerance {atol:g})")
+
+    def pair(module, copy):
+        before = {k: v.clone() for k, v in module.state_dict().items()}
+        copy.load_state_dict(before)
+        return {DEV: copy.to(DEV), "cpu": module}, before
+
+    lrnow = ppo.anneal(0, 1, 7e-4, 0.0)[0]
+    hp = a2c.Hyper()
+    # a2c, cnn
+    _, st, (returns, buf) = _cpu_batch(a2c.make_a2c, nsteps=5)
+    mods, before = pair(st.module, build_policy(
+        (84, 84, 4), 4, "cnn", device="cpu")[0])
+    compare("a2c cnn", mods, before, A2C_ATOL, lambda d, m: a2c.update(
+        m, ppo.RmsState.zeros_like(list(m.parameters())), buf.obs.to(d),
+        buf.actions.to(d), returns.to(d), lrnow, hp, 4))
+    # a2c, cnn_lstm
+    _, st, ((returns, carry0), buf) = _cpu_batch(
+        a2c.make_recurrent_a2c, network="cnn_lstm", nsteps=5)
+    mods, before = pair(st.module, ppo_recurrent.build_recurrent_policy(
+        (84, 84, 4), 4, "cnn_lstm", 128, "cpu")[0])
+    compare("a2c cnn_lstm", mods, before, A2C_LSTM_ATOL,
+            lambda d, m: a2c.recurrent_update(
+                m, ppo.RmsState.zeros_like(list(m.parameters())),
+                buf.obs.to(d), buf.actions.to(d), returns.to(d),
+                buf.prev_dones.to(d), tuple(c.to(d) for c in carry0), lrnow,
+                hp, 4))
+    # recurrent ppo, cnn_lstm: 4 epochs x 4 minibatches of 2 envs
+    _, st, (rb, _) = _cpu_batch(ppo_recurrent.make_recurrent_ppo,
+                                network="cnn_lstm", nsteps=8)
+    mods, before = pair(st.module, ppo_recurrent.build_recurrent_policy(
+        (84, 84, 4), 4, "cnn_lstm", 128, "cpu")[0])
+    perms = [torch.randperm(LEARNER_CHECK_ENVS, generator=st.generator)
+             for _ in range(4)]
+    lr_ppo, clip = ppo.anneal(0, 1, 2.5e-4, 0.1)
+
+    def ppo_one(d, m):
+        rbd = ppo_recurrent.RecurrentBatch(**{
+            f.name: (tuple(c.to(d) for c in getattr(rb, f.name))
+                     if f.name == "carry0" else getattr(rb, f.name).to(d))
+            for f in dataclasses.fields(rb)})
+        ppo_recurrent.update(
+            m, ppo.AdamState.zeros_like(list(m.parameters())), rbd,
+            [p.to(d) for p in perms], lr_ppo, clip, ppo.Hyper(), 4)
+
+    compare("ppo cnn_lstm", mods, before, PPO_LSTM_ATOL, ppo_one)
+    # acktr at the recipe's kfac_clip, one step (it inverts)
+    _, st, (returns, buf) = _cpu_batch(acktr.make_acktr, nsteps=20,
+                                       kfac_clip=0.01)
+    mods, before = pair(st.module, acktr.KfacCNNPolicy(4))
+    hpk = acktr.Hyper(kfac_clip=0.01)
+    lr_k = ppo.anneal(0, 1, 0.25, 0.0, floor=0.05)[0]
+    inv = {}
+
+    def acktr_one(d, m):
+        def to(tree):
+            return {k: tuple(x.to(d) for x in v) for k, v in tree.items()}
+        sd = acktr.ACKTRState(
+            module=m, momentum=ppo.MomentumState.zeros_like(
+                list(m.parameters())),
+            kfac_a={k: v.to(d) for k, v in st.kfac_a.items()},
+            perts={k: v.to(d) for k, v in st.perts.items()},
+            kfac_stats=to(st.kfac_stats), kfac_inv=to(st.kfac_inv),
+            env_state=None, generator=None)
+        acktr.kfac_step(sd, buf.obs.reshape((-1, 84, 84, 4)).to(d),
+                        buf.actions.reshape(-1).to(d),
+                        returns.reshape(-1).to(d), lr_k, hpk, 4)
+        inv[d] = sd.kfac_inv["fc0"][1].cpu()
+
+    compare("acktr", mods, before, ACKTR_ATOL, acktr_one)
+    sdiff = float((inv[DEV] - inv["cpu"]).abs().max() / inv["cpu"].abs().max())
+    out.append(f"acktr fc0 S inverse cuda vs cpu {sdiff:.3g} relative")
+    return "; ".join(out)
+
+
+def kfac_inverse_phase(state) -> str:
+    """The damped inverse of fc0's 3 137 x 3 137 A factor (the acktr run's
+    EMA), timed alone with CUDA events, beside the other layers'."""
+    from toybox_tpu_torch.rl import kfac
+
+    parts = []
+    for name, (A, S) in state.kfac_stats.items():
+        for what, M in (("A", A), ("S", S)):
+            if M.shape[0] < 64 and name != "fc0":
+                continue
+            ms = cuda_ms(lambda: kfac._damped_inv(M, 0.01), iters=10)
+            parts.append(f"{name} {what} {M.shape[0]}: {ms:.3f} ms")
+    full = cuda_ms(lambda: kfac.kfac_invert(state.kfac_stats, 0.01), iters=5)
+    return ("K-FAC damped inverses (torch.linalg.inv): " + ", ".join(parts)
+            + f"; kfac_invert of all layers {full:.3f} ms")
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1796,6 +2103,21 @@ def main() -> int:
     else:
         phase(17, "gym", t0, gym_phase())
 
+    # 18. the on-policy learners after PPO, each through run.main
+    learner_launches = {}
+    for spec in LEARNERS:
+        t0 = time.perf_counter()
+        mine, detail, state = learner_run(*spec)
+        for k, v in mine.items():
+            learner_launches[k] = learner_launches.get(k, 0) + v
+        phase(18, "learners", t0, detail)
+        if spec[0] == "acktr":
+            t0 = time.perf_counter()
+            phase(18, "learners", t0, kfac_inverse_phase(state))
+        del state
+    t0 = time.perf_counter()
+    phase(18, "learners", t0, learner_update_phase())
+
     kernels = []
     for g in GAMES:
         for name, line in zip((g.kernel, g.kernel + "_fused",
@@ -1808,6 +2130,7 @@ def main() -> int:
                 replaces=f"{PALLAS}:{line}", launches=launches[name],
                 gate_launches=gate_launches.get(name, 0),
                 heads_launches=heads_launches.get(name, 0),
+                learner_launches=learner_launches.get(name, 0),
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],

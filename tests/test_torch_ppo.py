@@ -289,8 +289,12 @@ def test_anneal_and_recurrent_and_mesh_refusals():
     assert ppo.anneal(9, 4, 2.5e-4, 0.1)[1] == float(
         np.float32(0.1) * np.float32(0.01))
     env = make_discrete_identity_env(2, dim=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppo.make_ppo(env, network="cnn_lstm", device="cpu")
+    # a recurrent network trains with ppo_recurrent, as in JAX
+    from toybox_tpu_torch.rl.ppo_recurrent import RecurrentPPOState
+    state = ppo.learn(env=env, network="lstm", nsteps=2, nminibatches=2,
+                      noptepochs=1, total_timesteps=4, nlstm=4,
+                      network_kwargs=dict(num_hidden=4), device="cpu")
+    assert isinstance(state, RecurrentPPOState) and state.update == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ppo.learn(env=env, network="mlp", mesh=object(), device="cpu")
 
@@ -335,7 +339,7 @@ def test_run_main_refuses_other_algs_and_plays(tmp_path, monkeypatch,
     with pytest.raises(ValueError, match="unknown alg"):
         run.main(_tiny_cli(tmp_path, "--alg=nope"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(_tiny_cli(tmp_path, "--alg=a2c"))
+        run.main(_tiny_cli(tmp_path, "--alg=deepq"))
     with pytest.raises(ValueError, match="key=value"):
         run.main(_tiny_cli(tmp_path, "--oops"))
     monkeypatch.setattr(run, "PLAY_ENVS", 2)

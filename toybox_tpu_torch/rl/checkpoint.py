@@ -14,9 +14,9 @@ port's modules.
 - ``params_from_flax`` maps the flax param tree of any eval head to the
   state_dict of the port's module, one mapping per template
   (``flax_template``: pi + V or Q over NatureCNN, SmallCNN, ConvOnly or
-  MLP, deepq's dueling QNetwork, acktr's KfacCNNPolicy, and the LSTM
-  trunks); it raises on a tree it does not know. ``params_to_flax`` is
-  its inverse on the ``params`` collection.
+  MLP, deepq's dueling QNetwork, acktr's KfacCNNPolicy in both its forms,
+  and the LSTM trunks); it raises on a tree it does not know.
+  ``params_to_flax`` is its inverse on the ``params`` collection.
 """
 
 from __future__ import annotations
@@ -242,13 +242,16 @@ def flax_template(tree: dict) -> str:
       RecurrentPolicyWithValue / RecurrentQPolicy over cnn_lstm,
       cnn_lnlstm or lstm;
     - ``dueling_q:<trunk>``: deepq's dueling QNetwork;
-    - ``kfac:cnn``: acktr's KfacCNNPolicy.
+    - ``kfac:cnn``: acktr's KfacCNNPolicy; ``kfac:mlp``: its flat-vector
+      form (``fc0`` alone before the heads).
 
     Raises ValueError on any other tree."""
     p = _params(tree)
     keys = set(p)
     if keys == {"conv0", "conv1", "conv2", "fc0", "pi", "vf"}:
         return "kfac:cnn"
+    if keys == {"fc0", "pi", "vf"}:
+        return "kfac:mlp"
     heads = keys - {"trunk"}
     if "trunk" in keys and isinstance(p["trunk"], dict):
         t = p["trunk"]
@@ -271,7 +274,7 @@ def state_dict_template(state_dict: dict) -> str:
     module's state_dict."""
     keys = set(state_dict)
     if "fc0.inner.weight" in keys:
-        return "kfac:cnn"
+        return "kfac:cnn" if "conv0.inner.weight" in keys else "kfac:mlp"
     head = "dueling_q" if "adv_hidden.weight" in keys else "pi_v"
     recurrent = "trunk.cell.ih.weight" in keys
     pre = "trunk.base." if recurrent else "trunk."
@@ -297,9 +300,11 @@ def _layers(template: str, n_mlp: int) -> list:
     its rows reordered), layer_norm or lstm."""
     head, net = template.split(":")
     if head == "kfac":
+        convs = 3 if net == "cnn" else 0
         return [((f"conv{i}", "inner"), f"conv{i}.inner", "conv")
-                for i in range(3)] + [
-            (("fc0", "inner"), "fc0.inner", "dense_chw"),
+                for i in range(convs)] + [
+            (("fc0", "inner"), "fc0.inner",
+             "dense_chw" if convs else "dense"),
             (("pi", "inner"), "pi.inner", "dense"),
             (("vf", "inner"), "vf.inner", "dense")]
     base = _BASE.get(net, net)
@@ -413,7 +418,8 @@ def params_from_flax(tree: dict) -> dict:
 def params_to_flax(state_dict: dict, template: str | None = None) -> dict:
     """Port module state_dict -> the flax param tree ``{"params": ...}`` of
     the same head (the inverse of ``params_from_flax``; the K-FAC taps are
-    not written), as numpy f32 arrays. ``template`` (as
+    not written here: ``rl.acktr.save_params`` adds them), as numpy f32
+    arrays. ``template`` (as
     ``flax_template`` names it), when given, must be the state_dict's."""
     sd = {k: v.detach().cpu().numpy().astype(np.float32)
           for k, v in state_dict.items()}

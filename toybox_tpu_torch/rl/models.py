@@ -182,9 +182,28 @@ class LSTMTrunk(nn.Module):
         latent = self.base(x)
         if hasattr(self, "norm"):
             latent = self.norm(latent)
+        return self._cell(carry, latent, done)
+
+    def _cell(self, carry, latent, done):
         mask = (1.0 - done.to(torch.float32))[:, None]
         carry = self.cell(tuple(c * mask for c in carry), latent)
         return carry[1], carry
+
+    def unroll(self, x: torch.Tensor, carry, dones: torch.Tensor):
+        """forward over a time axis: x [T, B, ...], dones [T, B] ->
+        (latents [T, B, nlstm], last carry). The base trunk (and the
+        LayerNorm) runs once over all T * B rows; only the cell loops
+        over time."""
+        t, b = dones.shape
+        latent = self.base(x.reshape((t * b,) + tuple(x.shape[2:])))
+        if hasattr(self, "norm"):
+            latent = self.norm(latent)
+        latent = latent.reshape(t, b, -1)
+        outs = []
+        for i in range(t):
+            out, carry = self._cell(carry, latent[i], dones[i])
+            outs.append(out)
+        return torch.stack(outs), carry
 
 
 def _image(cls):
@@ -240,8 +259,25 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 def init_trunk(trunk: nn.Module, generator: torch.Generator) -> None:
     """Every Conv2d and Linear of the trunk as flax initialises nn.Conv
-    and nn.Dense: lecun_normal kernels, zero biases."""
-    for m in trunk.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            lecun_normal_(m.weight, m.weight[0].numel(), generator)
-            nn.init.zeros_(m.bias)
+    and nn.Dense: lecun_normal kernels, zero biases; an LSTM cell as flax
+    initialises OptimizedLSTMCell, gate by gate: lecun_normal input
+    kernels, orthogonal hidden kernels, zero biases; a LayerNorm with unit
+    scale and zero bias."""
+    cells = [m for m in trunk.modules() if isinstance(m, LSTMCell)]
+    in_cells = {id(lin) for c in cells for lin in (c.ih, c.hh)}
+    with torch.no_grad():
+        for m in trunk.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and id(m) not in in_cells:
+                lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        for c in cells:
+            hidden = c.hh.weight.shape[1]
+            for g in range(4):
+                rows = slice(g * hidden, (g + 1) * hidden)
+                lecun_normal_(c.ih.weight[rows], c.ih.weight.shape[1],
+                              generator)
+                nn.init.orthogonal_(c.hh.weight[rows], generator=generator)
+            nn.init.zeros_(c.hh.bias)

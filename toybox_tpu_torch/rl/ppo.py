@@ -7,7 +7,9 @@ backward loop; minibatched epochs over one permutation per epoch, with lr
 and cliprange annealed by ``frac``; the atari defaults (nsteps 128, 4
 minibatches, 4 epochs, lam .95, gamma .99, ent .01, lr 2.5e-4, clip .1);
 and the optimizer optax.chain(clip_by_global_norm, scale_by_adam(eps=1e-5),
-scale(-lr)), written out here in optax's order of operations.
+scale(-lr)), written out here in optax's order of operations, beside the
+chains of the other on-policy learners (a2c's scale_by_rms, acktr's sgd
+with momentum).
 
 The JAX package runs a whole update as one jitted program; PyTorch runs
 eagerly, so the update is split into plain functions (``rollout``,
@@ -82,6 +84,48 @@ def adam_update(params: list, grads: list, state: AdamState, lr,
         nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
         step = (mu / float(c1)) / (torch.sqrt(nu / float(c2)) + eps)
         p.add_(-step * lr)
+
+
+@dataclasses.dataclass
+class RmsState:
+    """optax ``scale_by_rms`` state: the second moment, starting at 0."""
+    nu: list
+
+    @classmethod
+    def zeros_like(cls, params) -> "RmsState":
+        return cls(nu=[torch.zeros_like(p) for p in params])
+
+
+@torch.no_grad()
+def rms_update(params: list, grads: list, state: RmsState, lr,
+               decay: float = 0.99, eps: float = 1e-5) -> None:
+    """One optax scale_by_rms step (no bias correction, eps inside the
+    root), then scale(-1) and the lr, applied in place:
+    nu = (1-decay) g^2 + decay nu, p += (-(g * rsqrt(nu + eps))) * lr.
+    (torch.optim.RMSprop divides by sqrt(nu) + eps: other steps.)"""
+    for p, g, nu in zip(params, grads, state.nu):
+        nu.copy_((1.0 - decay) * (g * g) + decay * nu)
+        p.add_(-(g * torch.rsqrt(nu + eps)) * lr)
+
+
+@dataclasses.dataclass
+class MomentumState:
+    """optax ``sgd(1.0, momentum)`` state: the trace of past updates."""
+    trace: list
+
+    @classmethod
+    def zeros_like(cls, params) -> "MomentumState":
+        return cls(trace=[torch.zeros_like(p) for p in params])
+
+
+@torch.no_grad()
+def momentum_update(params: list, grads: list, state: MomentumState, scale,
+                    momentum: float = 0.9) -> None:
+    """One optax sgd(1.0, momentum) step scaled by ``scale``, in place:
+    t = g + momentum t, p += scale * (-t)."""
+    for p, g, t in zip(params, grads, state.trace):
+        t.copy_(g + momentum * t)
+        p.add_(scale * -t)
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +285,13 @@ def update(module, adam: AdamState, batch: tuple, perms: list, lrnow: float,
 
 
 def anneal(update_count: int, total_updates: int, lr: float,
-           cliprange: float) -> tuple:
+           cliprange: float, floor: float = 0.01) -> tuple:
     """(lrnow, cliprnow) as f32 values: both scaled by
-    frac = max(1 - update/total_updates, 0.01), computed in f32 as the
-    JAX train_step computes it."""
+    frac = max(1 - update/total_updates, floor), computed in f32 as the
+    JAX train_step computes it (floor 0.01; acktr's is 0.05)."""
     f32 = np.float32
     frac = np.maximum(f32(1.0) - f32(update_count) / f32(max(total_updates,
-                                                            1)), f32(0.01))
+                                                            1)), f32(floor))
     return float(f32(lr) * frac), float(f32(cliprange) * frac)
 
 
@@ -324,9 +368,9 @@ def make_ppo(env_fns, *, network="cnn", lr=2.5e-4, cliprange=0.1,
     chunks summed before the one Adam step (advantages normalised over the
     full minibatch first), as the JAX package does to bound memory."""
     if network in RECURRENT_NETWORKS:
-        raise NotImplementedError(
-            f"recurrent network {network!r}: ppo_recurrent is not ported "
-            "yet (ROADMAP.md §1: the remaining learners)")
+        raise ValueError(f"recurrent network {network!r}: use "
+                         "ppo_recurrent.make_recurrent_ppo (learn "
+                         "dispatches to it)")
     num_envs = env_fns.num_envs
     nbatch = num_envs * nsteps
     if nbatch % nminibatches or (nbatch // nminibatches) % microbatches:
@@ -410,10 +454,24 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
     each step's frame is warped inside the fused frame kernel, which on
     the H100 takes less time than the fused kernel and two matmuls
     (PERF.md); Gridworld's frames take the plain render and the matmul
-    warp. TF32 is turned off, as the JAX reference computes in f32."""
+    warp. TF32 is turned off, as the JAX reference computes in f32. A
+    recurrent network (lstm, cnn_lstm, cnn_lnlstm) trains with
+    ``ppo_recurrent.learn``, as in JAX."""
     if mesh is not None:
         raise NotImplementedError("mesh=: the distributed layer is not "
                                   "ported yet (ROADMAP.md §1)")
+    if network in RECURRENT_NETWORKS:
+        from toybox_tpu_torch.rl.ppo_recurrent import learn as rlearn
+        return rlearn(env=env, game=game, num_envs=num_envs,
+                      total_timesteps=total_timesteps, seed=seed,
+                      network=network, nsteps=nsteps,
+                      nminibatches=nminibatches, noptepochs=noptepochs,
+                      lr=lr, cliprange=cliprange, gamma=gamma, lam=lam,
+                      ent_coef=ent_coef, vf_coef=vf_coef,
+                      max_grad_norm=max_grad_norm,
+                      log_interval=log_interval, save_path=save_path,
+                      load_path=load_path, logger=logger,
+                      network_kwargs=network_kwargs, device=device, **extra)
     if extra:
         raise TypeError(f"learn() got unexpected arguments {sorted(extra)}")
     full_f32()

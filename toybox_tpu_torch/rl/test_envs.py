@@ -1,11 +1,13 @@
-"""Fake-env fixture for learning tests (port of toybox_tpu.rl.test_envs
-``make_discrete_identity_env``, the reference's DiscreteIdentityEnv): a
-tiny seeded task whose optimal return is known.
+"""Fake-env fixtures for learning tests (port of toybox_tpu.rl.test_envs
+``make_discrete_identity_env`` and ``make_fixed_sequence_env``, the
+reference's DiscreteIdentityEnv and FixedSequenceEnv): tiny seeded tasks
+whose optimal return is known.
 
-It follows the BatchedEnvFns protocol (reset/step over a state whose
-``frames`` field is the observation). Its targets come from a
-``torch.Generator`` held in the state and advanced in place, so the
-numbers differ from the JAX fixture's; the task is the same.
+Each follows the BatchedEnvFns protocol (reset/step over a state whose
+``frames`` field is the observation). Their draws come from
+``torch.Generator``s (the identity env's held in the state and advanced
+in place), so the numbers differ from the JAX fixtures'; the tasks are
+the same.
 """
 
 from __future__ import annotations
@@ -71,3 +73,51 @@ def make_discrete_identity_env(num_envs: int, dim: int = 10,
                          obs_mode="vector", reset=reset, step=step,
                          obs_shape=(dim,), num_actions=dim,
                          legal_actions=tuple(range(dim)))
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSeqState:
+    frames: torch.Tensor          # f32[N, 1] t / episode_len
+    t: torch.Tensor               # i32[N] steps into the episode
+
+
+def make_fixed_sequence_env(num_envs: int, n_actions: int = 10,
+                            episode_len: int = 100, seed: int = 0,
+                            device="cuda") -> BatchedEnvFns:
+    """Reward 1 for emitting the fixed action of each step, the sequence
+    drawn once from a generator seeded with ``seed``: a memorization
+    task. The observation is the step's index over episode_len."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    seq = torch.randint(0, n_actions, (episode_len,), generator=gen,
+                        device=dev)
+
+    def reset(seeds):
+        frames = torch.zeros((num_envs, 1), dtype=F32, device=dev)
+        return FixedSeqState(frames=frames, t=torch.zeros(
+            num_envs, dtype=I32, device=dev)), frames
+
+    def step(state: FixedSeqState, actions):
+        correct = seq[state.t.clamp(0, episode_len - 1).long()]
+        reward = (torch.as_tensor(actions, device=dev).long()
+                  == correct).to(F32)
+        t = state.t + 1
+        done = t >= episode_len
+        t = torch.where(done, torch.zeros_like(t), t)
+        frames = t.to(F32)[:, None] / episode_len
+        nan = torch.full((), float("nan"), device=dev)
+        info = {"lives": torch.ones(num_envs, dtype=I32, device=dev),
+                "score": torch.zeros(num_envs, dtype=I32, device=dev),
+                "episode_return": torch.where(
+                    done, torch.zeros((), device=dev), nan),
+                "episode_length": torch.where(
+                    done, torch.full_like(t, episode_len),
+                    torch.zeros_like(t)),
+                "raw_reward": reward}
+        return FixedSeqState(frames=frames, t=t), frames, reward, done, info
+
+    return BatchedEnvFns(game_name="fixed_sequence", num_envs=num_envs,
+                         obs_mode="vector", reset=reset, step=step,
+                         obs_shape=(1,), num_actions=n_actions,
+                         legal_actions=tuple(range(n_actions)))

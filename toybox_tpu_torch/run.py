@@ -1,15 +1,17 @@
 """Training CLI (port of toybox_tpu.run, the reference baselines/run.py
-surface); of the learners, only PPO is ported so far:
+surface); the ported learners are ppo (recurrent too, with
+--network=lstm|cnn_lstm|cnn_lnlstm), a2c (recurrent too) and acktr:
 
-    python -m toybox_tpu_torch.run --alg=ppo \
+    python -m toybox_tpu_torch.run --alg=ppo|a2c|acktr \
         --env=BreakoutToyboxNoFrameskip-v4 --num_timesteps=1e6 \
-        [--num_envs=64] [--save_path=...] [--play] [--device=cuda]
+        [--num_envs=64] [--network=...] [--save_path=...] [--play] \
+        [--device=cuda]
 
 It maps the env id onto the batched device envs (the game name from
 <Game>ToyboxNoFrameskip-v4), resolves the per-alg defaults, passes
 --key=value extras through to learn() as python literals, and plays the
 trained policy with --play. --save_path writes the policy as flax params,
-which the JAX package's ``ppo.load_params`` reads. Other algorithms raise
+which the JAX package's ``load_params`` reads. Other algorithms raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -28,16 +30,20 @@ ALG_DEFAULTS = {
                 noptepochs=4, ent_coef=0.01, lr=2.5e-4, cliprange=0.1,
                 network="cnn"),
     "ppo2": "ppo",
+    # reference a2c defaults
+    "a2c": dict(nsteps=5, gamma=0.99, ent_coef=0.01, lr=7e-4,
+                network="cnn"),
     # the other learners' network defaults (the JAX package's): the eval
     # heads read them (regress, sample_tests); the rest of each alg's
     # defaults comes with its learner
-    "a2c": dict(network="cnn"),
     "deepq": dict(network="conv_only"),
     "dqn": "deepq",
     "trpo": dict(network="cnn_small"),
     "trpo_mpi": "trpo",
     "acer": dict(network="cnn_small"),
-    "acktr": dict(),
+    # reference acktr defaults (acktr/acktr_disc.py)
+    "acktr": dict(nsteps=20, lr=0.25, ent_coef=0.01, vf_coef=0.5,
+                  kfac_clip=0.001),
     "ppo1": dict(network="cnn"),
     "gail": dict(network="cnn_small"),
 }
@@ -99,17 +105,27 @@ def parse_cmdline_kwargs(args):
     return out
 
 
+#: the learners not ported yet (ROADMAP.md §1)
+MISSING_ALGS = ("deepq", "dqn", "acer", "trpo", "trpo_mpi", "ppo1", "gail",
+                "ddpg", "her")
+
+
 def get_learn_function(alg: str):
     """(learn, default kwargs) of an algorithm."""
     if alg in ("ppo", "ppo2"):
         from toybox_tpu_torch.rl.ppo import learn
-        return learn, alg_defaults(alg)
-    if alg not in ("her", "ddpg"):
-        alg_defaults(alg)                 # ValueError for an unknown alg
-    raise NotImplementedError(
-        f"alg {alg!r}: its learner is not ported to toybox_tpu_torch yet "
-        "(ROADMAP.md §1: the remaining learners); its checkpoints play "
-        "through regress and sample_tests")
+    elif alg == "a2c":
+        from toybox_tpu_torch.rl.a2c import learn
+    elif alg == "acktr":
+        from toybox_tpu_torch.rl.acktr import learn
+    else:
+        if alg not in ("her", "ddpg"):
+            alg_defaults(alg)             # ValueError for an unknown alg
+        raise NotImplementedError(
+            f"alg {alg!r}: its learner is not ported to toybox_tpu_torch "
+            f"yet (ROADMAP.md §1: still missing {', '.join(MISSING_ALGS)}); "
+            "its checkpoints play through regress and sample_tests")
+    return learn, alg_defaults(alg)
 
 
 def train(args, extra_kwargs):
@@ -146,11 +162,18 @@ def play(args, state):
     gen.manual_seed(0)
     st, _ = env.reset(torch.arange(n_envs, device=dev))
     totals = torch.zeros(n_envs, device=dev)
+    recurrent = hasattr(module, "initial_carry")
+    if recurrent:
+        carry = module.initial_carry(n_envs)
+        done = torch.zeros(n_envs, dtype=torch.bool, device=dev)
     returns = []
     for _ in range(PLAY_CHUNKS):
         finished = []
         for _ in range(PLAY_CHUNK):
-            logits, _ = module(st.frames)
+            if recurrent:
+                logits, _, carry = module(st.frames, carry, done)
+            else:
+                logits, _ = module(st.frames)
             st, _, _, done, info = env.step(
                 st, CategoricalPd(logits).sample(gen))
             totals = totals + info["raw_reward"]

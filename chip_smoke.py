@@ -119,11 +119,23 @@ Phases, each printing one line per game with its own wall time:
      one update of each learner on cuda against cpu from the same params
      and batch (LEARNER_CHECK_ENVS envs): params within each learner's
      stated tolerance.
+ 19. replay learners (a main path of each): ``run.main`` trains and
+     saves, on the pipeline's in-kernel warp, deepq on Space Invaders at
+     its recipe (8 envs, train_freq 2, batch 64, a prioritized dueling
+     double-Q ring of 10 000; one block of 128 cycles, learning_starts
+     cut to 64 so that SGD and two target syncs run), acer cnn_small on
+     Breakout (16 envs x nsteps 20, 2 blocks of 4 cycles, so replay
+     runs), acer cnn_lstm on Space Invaders (one block of 2 cycles) and
+     trpo on Space Invaders (16 envs x nsteps 512, one update), each
+     checked as phase 18 checks its runs (the warp kernel once an agent
+     step: train_freq, nsteps or 512 an update); then the optimize half
+     of one deepq cycle, one acer cycle (with replay) and one trpo update
+     on cuda against cpu from the same params, ring or batch and draws.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
-phase 13's serve chunks, ``learner_launches`` summed over phase 18's
-runs), the total time, and as the last line
+phase 13's serve chunks, ``learner_launches`` summed over phases 18's
+and 19's runs), the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -1669,34 +1681,65 @@ def gym_phase() -> str:
 # PPO and ACKTR with K-FAC, through run.main at the published widths.
 # ---------------------------------------------------------------------------
 
-#: (label, game, run.main arguments, updates, nsteps, eval head (alg,
-#: network)); each run's env is the pipeline's in-kernel warp
+#: (label, game, run.main arguments, updates (or cycles), agent steps an
+#: update, eval head (alg, network), the logged metrics to check); each
+#: run's env is the pipeline's in-kernel warp
+PG_KEYS = ("policy_loss", "value_loss", "policy_entropy")
 LEARNERS = (
     ("a2c cnn", "breakout",
      ["--alg=a2c", "--num_envs=32", "--updates_per_jit=64",
-      "--log_interval=64"], 64, 5, ("a2c", "cnn")),
+      "--log_interval=64"], 64, 5, ("a2c", "cnn"), PG_KEYS),
     ("a2c cnn_lstm", "breakout",
      ["--alg=a2c", "--network=cnn_lstm", "--num_envs=32",
       "--updates_per_jit=4", "--log_interval=4"], 4, 5,
-     ("a2c", "cnn_lstm")),
+     ("a2c", "cnn_lstm"), PG_KEYS),
     ("ppo cnn_lstm", "breakout",
      ["--alg=ppo", "--network=cnn_lstm", "--num_envs=1024"], 1, 128,
-     ("ppo", "cnn_lstm")),
+     ("ppo", "cnn_lstm"), PG_KEYS),
     ("ppo cnn_lnlstm", "space_invaders",
      ["--alg=ppo", "--network=cnn_lnlstm", "--num_envs=1024",
-      "--nsteps=32"], 1, 32, ("ppo", "cnn_lnlstm")),
+      "--nsteps=32"], 1, 32, ("ppo", "cnn_lnlstm"), PG_KEYS),
     ("acktr", "breakout",
      ["--alg=acktr", "--num_envs=32", "--updates_per_jit=2",
       "--log_interval=2", "--invert_every=16", "--kfac_clip=0.01"], 2, 20,
-     ("acktr", "cnn")),
+     ("acktr", "cnn"), PG_KEYS),
 )
-#: each recipe's frames (docs/TRAINING.md, the Breakout rows)
+#: phase 19: the replay learners and TRPO at their recipes
+#: (docs/TRAINING.md), cut in depth: deepq one block of 128 cycles with
+#: learning_starts 64 (SGD from cycle 5; target syncs at 1 000 and 2 000
+#: env steps), acer 2 blocks of 4 cycles (replay from the second),
+#: acer cnn_lstm one block of 2, trpo one update
+REPLAY_LEARNERS = (
+    ("deepq", "space_invaders",
+     ["--alg=deepq", "--num_envs=8", "--train_freq=2", "--batch_size=64",
+      "--jit_cycles=128", "--log_interval=1", "--learning_starts=64"],
+     128, 2, ("deepq", "conv_only"), ("loss", "mean_q", "epsilon")),
+    ("acer cnn_small", "breakout",
+     ["--alg=acer", "--num_envs=16", "--cycles_per_jit=4",
+      "--log_interval=4"], 8, 20, ("acer", "cnn_small"),
+     ("pg_loss", "q_loss", "entropy")),
+    ("acer cnn_lstm", "space_invaders",
+     ["--alg=acer", "--network=cnn_lstm", "--num_envs=16",
+      "--cycles_per_jit=2", "--log_interval=2"], 2, 20,
+     ("acer", "cnn_lstm"), ("pg_loss", "q_loss", "entropy")),
+    ("trpo", "space_invaders", ["--alg=trpo", "--num_envs=16"], 1, 512,
+     ("trpo", "cnn_small"), ("surrogate_gain", "kl", "vf_loss", "entropy")),
+)
+#: each recipe's frames (docs/TRAINING.md: the Breakout rows, and the
+#: game each phase-19 run plays)
 RECIPE_FRAMES = {"a2c cnn": 60e6, "a2c cnn_lstm": 120e6,
                  "ppo cnn_lstm": 120e6, "ppo cnn_lnlstm": 120e6,
-                 "acktr": 640e6}
+                 "acktr": 640e6, "deepq": 40e6, "acer cnn_small": 320e6,
+                 "acer cnn_lstm": 160e6, "trpo": 40e6}
 LEARNER_PROFILE_ENVS = 32        # collect is profiled up to this width
+LEARNER_PROFILE_STEPS = 20       # and this many agent steps
 LEARNER_CHECK_ENVS = 8           # the cuda-against-cpu updates
 A2C_ATOL, A2C_LSTM_ATOL, PPO_LSTM_ATOL, ACKTR_ATOL = 1e-5, 1e-5, 1e-5, 1e-6
+# phase 19: DQN one Adam step (lr 1e-4), ACER 1 + 4 RMSProp steps (as
+# a2c's), TRPO relative to its step's largest move (ten CG iterations on
+# double-backward Fisher-vector products: cuDNN and the CPU sum in other
+# orders; tests/test_torch_trpo.py)
+DQN_ATOL, ACER_ATOL, TRPO_RTOL = 1e-6, 1e-5, 1e-4
 
 
 class _TimedSteps:
@@ -1748,13 +1791,14 @@ def _busy(fn, label: str) -> str:
             f"({100 * busy / wall:.1f}%)")
 
 
-def learner_run(label, game, args, updates, nsteps, head):
-    """A main path: run.main trains ``updates`` updates and saves the
-    policy, the launch counts set to 0 just before and read just after;
-    each update's collect and optimize timed apart. Then the saved file
-    through ``load_eval_params`` (equal params), and one more collect (at
-    most LEARNER_PROFILE_ENVS envs) and optimize under the profiler.
-    Returns (launches, detail, state)."""
+def learner_run(label, game, args, updates, nsteps, head, keys):
+    """A main path: run.main trains ``updates`` updates (or cycles) and
+    saves the policy, the launch counts set to 0 just before and read just
+    after; each update's collect and optimize timed apart; the last logged
+    row's ``keys`` finite. Then the saved file through
+    ``load_eval_params`` (equal params), and one more collect (at most
+    LEARNER_PROFILE_ENVS envs x LEARNER_PROFILE_STEPS steps) and optimize
+    under the profiler. Returns (launches, detail, state)."""
     from toybox_tpu_torch.rl.eval_adapter import load_eval_params
 
     g = next(x for x in GAMES if x.name == game)
@@ -1783,7 +1827,7 @@ def learner_run(label, game, args, updates, nsteps, head):
     rows = list(csv.DictReader(
         (log_dir / "progress.csv").read_text().splitlines()))
     check(len(rows) >= 1, f"{label} logged no row")
-    for k in ("policy_loss", "value_loss", "policy_entropy"):
+    for k in keys:
         check(math.isfinite(float(rows[-1][k])), f"{label} {k} = "
                                                   f"{rows[-1][k]}")
     module = load_eval_params(*head, path, game, device=DEV)
@@ -1800,12 +1844,13 @@ def learner_run(label, game, args, updates, nsteps, head):
     nbatch = n_envs * nsteps
     step, st, collected = timed.last
     shares = []
-    if n_envs <= LEARNER_PROFILE_ENVS:
+    if n_envs <= LEARNER_PROFILE_ENVS and nsteps <= LEARNER_PROFILE_STEPS:
         out = []
         shares.append(_busy(lambda: out.append(step.collect(st)), "collect"))
         collected = out[0]
     else:
-        shares.append(f"collect ({n_envs} envs) not profiled")
+        shares.append(f"collect ({n_envs} envs x {nsteps} steps) not "
+                      "profiled")
     shares.append(_busy(lambda: step.optimize(st, collected), "optimize"))
     fps = nbatch * 4 / per_update
     detail = (f"{label} on {game}, {n_envs} envs x nsteps {nsteps}, "
@@ -1816,9 +1861,9 @@ def learner_run(label, game, args, updates, nsteps, head):
               f"{RECIPE_FRAMES[label] / fps / 3600:.2f} h; {'; '.join(shares)}"
               f"; launches {single} {launches[single]}, {warp} "
               f"{launches[warp]} ({launches[warp] / updates:.0f} an update); "
-              f"last row " + ", ".join(f"{k} {float(rows[-1][k]):.4g}" for k in
-                                       ("policy_loss", "value_loss",
-                                        "policy_entropy", "eprewmean"))
+              f"last row " + ", ".join(
+                  f"{k} {float(rows[-1][k]):.4g}" for k in
+                  keys + (("eprewmean",) if "eprewmean" in rows[-1] else ()))
               + f"; {path.stat().st_size} B saved, read back equal")
     return launches, detail, state
 
@@ -1949,6 +1994,107 @@ def kfac_inverse_phase(state) -> str:
     return ("K-FAC damped inverses (torch.linalg.inv): " + ", ".join(parts)
             + f"; kfac_invert of all layers {full:.3f} ms")
 
+
+def _ring_to(ring, d):
+    """A replay ring (dqn.Replay, acer.TrajReplay) with its tensors on d."""
+    return type(ring)(**{k: v.to(d) if torch.is_tensor(v) else v
+                         for k, v in ring.state_dict().items()})
+
+
+def replay_update_phase() -> str:
+    """The optimize half of one cycle (or update) of each phase-19 learner
+    on cuda and on cpu, from the same params, optimizer moments, ring or
+    batch and draws (cpu cycles at LEARNER_CHECK_ENVS Breakout envs make
+    them): params within the learner's tolerance."""
+    from toybox_tpu_torch.rl import acer, dqn, trpo
+    from toybox_tpu_torch.rl.distributions import gumbel
+    from toybox_tpu_torch.rl.models import network_factory
+
+    env = make_rl_env("breakout", LEARNER_CHECK_ENVS, device="cpu")
+    out = []
+
+    def compare(label, state, copy_to, optimize, tol, relative=False):
+        before = {k: v.clone() for k, v in state.module.state_dict().items()}
+        states = {DEV: copy_to(DEV), "cpu": state}
+        for d, st in states.items():
+            optimize(d, st)
+        moved, diff = _diff({d: st.module for d, st in states.items()},
+                            before)
+        bound = tol * moved if relative else tol
+        check(moved > 10 * bound, f"{label}: the update moved the params "
+                                  f"by only {moved}")
+        check(diff <= bound, f"{label}: cuda and cpu differ by {diff} "
+                             f"(bound {bound:.3g})")
+        out.append(f"{label} moved {moved:.3g}, cuda vs cpu {diff:.3g} "
+                   f"(tolerance {tol:g}{' of the move' if relative else ''})")
+
+    def load(module, like):
+        module.load_state_dict(like.state_dict())
+        return module
+
+    # deepq: conv_only, dueling; 3 cycles, then one collect
+    init_fn, cycle, _ = dqn.make_dqn(env, buffer_size=256, batch_size=64,
+                                     train_freq=2, learning_starts=0,
+                                     device="cpu")
+    st = init_fn(0)
+    for _ in range(3):
+        st, _ = cycle(st)
+    t_before = cycle.collect(st)
+    noise = gumbel((64, 256), torch.Generator().manual_seed(0), "cpu")
+
+    def dqn_copy(d):
+        def q():
+            return dqn.QNetwork(network_factory("conv_only")((84, 84, 4)),
+                                4).to(d)
+        return dqn.DQNState(
+            module=load(q(), st.module), target=load(q(), st.target),
+            adam=ppo.AdamState([x.to(d) for x in st.adam.mu],
+                               [x.to(d) for x in st.adam.nu], st.adam.count),
+            env_state=None, replay=_ring_to(st.replay, d), generator=None,
+            pn_scale=st.pn_scale.to(d), t=st.t, update=st.update)
+
+    compare("deepq", st, dqn_copy, lambda d, s: cycle.optimize(
+        s, t_before, {"gumbel": noise.to(d)}), DQN_ATOL)
+
+    # acer: cnn_small; 2 cycles, then a collect: the optimize replays
+    init_fn, cycle = acer.make_acer(env, network="cnn_small", nsteps=20,
+                                    buffer_traj=4, device="cpu")
+    st = init_fn(0)
+    for _ in range(2):
+        st, _ = cycle(st)
+    cur, ep = cycle.collect(st)
+    idx = torch.tensor([0, 2, 1, 2])
+
+    def acer_copy(d):
+        def pol():
+            return acer.build_acer_policy((84, 84, 4), 4, "cnn_small",
+                                          device=d)[0]
+        return acer.ACERState(
+            module=load(pol(), st.module), avg=load(pol(), st.avg),
+            rms=ppo.RmsState([x.to(d) for x in st.rms.nu]), env_state=None,
+            replay=_ring_to(st.replay, d), generator=None, update=st.update)
+
+    compare("acer", st, acer_copy, lambda d, s: cycle.optimize(
+        s, (cur, ep), {"replay_idx": idx.to(d)}), ACER_ATOL)
+
+    # trpo: cnn_small, nsteps 32
+    init_fn, step = trpo.make_trpo(env, network="cnn_small", nsteps=32,
+                                   device="cpu")
+    st = init_fn(0)
+    batch, roll = step.collect(st)
+
+    def trpo_copy(d):
+        def pol():
+            return build_policy((84, 84, 4), 4, "cnn_small", device=d)[0]
+        vf = load(pol(), st.vf)
+        return trpo.TRPOState(
+            module=load(pol(), st.module), vf=vf,
+            vf_adam=ppo.AdamState.zeros_like(list(vf.parameters())),
+            env_state=None, generator=None)
+
+    compare("trpo", st, trpo_copy, lambda d, s: step.optimize(
+        s, (tuple(x.to(d) for x in batch), roll)), TRPO_RTOL, relative=True)
+    return "; ".join(out)
 
 
 def main() -> int:
@@ -2117,6 +2263,17 @@ def main() -> int:
         del state
     t0 = time.perf_counter()
     phase(18, "learners", t0, learner_update_phase())
+
+    # 19. the replay learners and TRPO, each through run.main
+    for spec in REPLAY_LEARNERS:
+        t0 = time.perf_counter()
+        mine, detail, state = learner_run(*spec)
+        for k, v in mine.items():
+            learner_launches[k] = learner_launches.get(k, 0) + v
+        phase(19, "replay learners", t0, detail)
+        del state
+    t0 = time.perf_counter()
+    phase(19, "replay learners", t0, replay_update_phase())
 
     kernels = []
     for g in GAMES:

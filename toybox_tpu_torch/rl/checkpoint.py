@@ -14,8 +14,8 @@ port's modules.
 - ``params_from_flax`` maps the flax param tree of any eval head to the
   state_dict of the port's module, one mapping per template
   (``flax_template``: pi + V or Q over NatureCNN, SmallCNN, ConvOnly or
-  MLP, deepq's dueling QNetwork, acktr's KfacCNNPolicy in both its forms,
-  and the LSTM trunks); it raises on a tree it does not know.
+  MLP, deepq's QNetwork, dueling or not, acktr's KfacCNNPolicy in both
+  its forms, and the LSTM trunks); it raises on a tree it does not know.
   ``params_to_flax`` is its inverse on the ``params`` collection.
 """
 
@@ -241,7 +241,9 @@ def flax_template(tree: dict) -> str:
       cnn, cnn_small, conv_only or mlp, and the recurrent
       RecurrentPolicyWithValue / RecurrentQPolicy over cnn_lstm,
       cnn_lnlstm or lstm;
-    - ``dueling_q:<trunk>``: deepq's dueling QNetwork;
+    - ``dueling_q:<trunk>``: deepq's dueling QNetwork; ``q:<trunk>``: its
+      non-dueling form, whose two Dense layers have pi_v's names and are
+      told apart by shape (``_dense_pair``);
     - ``kfac:cnn``: acktr's KfacCNNPolicy; ``kfac:mlp``: its flat-vector
       form (``fc0`` alone before the heads).
 
@@ -263,10 +265,30 @@ def flax_template(tree: dict) -> str:
                                                           "Dense_1"}:
                 return "pi_v:" + net
         elif heads == {"Dense_0", "Dense_1"}:
-            return "pi_v:" + _trunk_kind(t)
+            return _dense_pair(p) + ":" + _trunk_kind(t)
         elif heads == {f"Dense_{i}" for i in range(4)}:
             return "dueling_q:" + _trunk_kind(t)
     raise ValueError(f"unknown param tree with top-level keys {sorted(keys)}")
+
+
+def _dense_pair(p: dict) -> str:
+    """The head of a tree whose heads are Dense_0 and Dense_1: "pi_v"
+    when both read the trunk's latent (pi, then a V of 1 or a Q of as many
+    outputs as pi), "q" when Dense_1 reads Dense_0's output and writes
+    more than one score (the non-dueling QNetwork: a hidden layer, then
+    the action scores)."""
+    try:
+        (i0, o0), (i1, o1) = (p[k]["kernel"].shape
+                              for k in ("Dense_0", "Dense_1"))
+    except (KeyError, TypeError, ValueError):
+        raise ValueError("Dense_0 and Dense_1 must each hold a 2-d "
+                         "kernel") from None
+    pi_v = i1 == i0 and o1 in (1, o0)
+    q = i1 == o0 and o1 != 1
+    if pi_v == q:
+        raise ValueError(f"Dense_0 {i0}x{o0} and Dense_1 {i1}x{o1} fit "
+                         f"{'both' if q else 'neither'} of pi_v and q")
+    return "pi_v" if pi_v else "q"
 
 
 def state_dict_template(state_dict: dict) -> str:
@@ -275,7 +297,8 @@ def state_dict_template(state_dict: dict) -> str:
     keys = set(state_dict)
     if "fc0.inner.weight" in keys:
         return "kfac:cnn" if "conv0.inner.weight" in keys else "kfac:mlp"
-    head = "dueling_q" if "adv_hidden.weight" in keys else "pi_v"
+    head = ("pi_v" if "adv_hidden.weight" not in keys else
+            "dueling_q" if "val_hidden.weight" in keys else "q")
     recurrent = "trunk.cell.ih.weight" in keys
     pre = "trunk.base." if recurrent else "trunk."
     if f"{pre}layers.0.weight" in keys:
@@ -324,9 +347,10 @@ def _layers(template: str, n_mlp: int) -> list:
     if net in _BASE:
         out.append((("trunk", "OptimizedLSTMCell_0"), "trunk.cell", "lstm"))
     first = "dense_chw" if base == "conv_only" else "dense"
-    names = ((("pi", first), ("vf", first)) if head == "pi_v" else
-             (("adv_hidden", first), ("adv_out", "dense"),
-              ("val_hidden", first), ("val_out", "dense")))
+    names = {"pi_v": (("pi", first), ("vf", first)),
+             "q": (("adv_hidden", first), ("adv_out", "dense")),
+             "dueling_q": (("adv_hidden", first), ("adv_out", "dense"),
+                           ("val_hidden", first), ("val_out", "dense"))}[head]
     return out + [((f"Dense_{i}",), name, kind)
                   for i, (name, kind) in enumerate(names)]
 

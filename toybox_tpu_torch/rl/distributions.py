@@ -1,12 +1,20 @@
 """Categorical action distribution (port of
 toybox_tpu.rl.distributions ``CategoricalPd`` and ``make_pdtype`` for a
-discrete action space)."""
+discrete action space), and the standard Gumbel noise its draws use."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def gumbel(shape, generator: torch.Generator, device,
+           dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform from ``generator``
+    (kept above the dtype's smallest normal number)."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
 
 
 def gumbel_max(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -22,10 +30,9 @@ class CategoricalPd:
     def sample(self, generator: torch.Generator) -> torch.Tensor:
         """Gumbel-max draw with noise from ``generator`` (on the logits'
         device)."""
-        u = torch.rand(self.logits.shape, generator=generator,
-                       device=self.logits.device, dtype=self.logits.dtype)
-        u = u.clamp_min(torch.finfo(u.dtype).tiny)
-        return gumbel_max(self.logits, -torch.log(-torch.log(u)))
+        return gumbel_max(self.logits, gumbel(
+            self.logits.shape, generator, self.logits.device,
+            self.logits.dtype))
 
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1)
@@ -37,6 +44,12 @@ class CategoricalPd:
     def entropy(self) -> torch.Tensor:
         logp = torch.log_softmax(self.logits, dim=-1)
         return -(logp.exp() * logp).sum(-1)
+
+    def kl(self, other: "CategoricalPd") -> torch.Tensor:
+        """KL(self || other) over the last axis."""
+        logp = torch.log_softmax(self.logits, dim=-1)
+        logq = torch.log_softmax(other.logits, dim=-1)
+        return (logp.exp() * (logp - logq)).sum(-1)
 
 
 def make_pdtype(space):

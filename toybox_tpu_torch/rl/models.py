@@ -156,6 +156,11 @@ class LSTMCell(nn.Module):
         return c, torch.sigmoid(o) * torch.tanh(c)
 
 
+def _keep(done: torch.Tensor) -> torch.Tensor:
+    """1 - done as f32 with a trailing unit axis: the carry's multiplier."""
+    return (1.0 - done.to(torch.float32))[..., None]
+
+
 class LSTMTrunk(nn.Module):
     """The reference lstm / cnn_lstm / cnn_lnlstm: a base trunk, with
     ``layer_norm`` a LayerNorm (flax's: epsilon 1e-6) on its latent, then
@@ -182,11 +187,11 @@ class LSTMTrunk(nn.Module):
         latent = self.base(x)
         if hasattr(self, "norm"):
             latent = self.norm(latent)
-        return self._cell(carry, latent, done)
+        return self._cell(carry, latent, _keep(done))
 
-    def _cell(self, carry, latent, done):
-        mask = (1.0 - done.to(torch.float32))[:, None]
-        carry = self.cell(tuple(c * mask for c in carry), latent)
+    def _cell(self, carry, latent, keep):
+        """One step from the carry times ``keep`` (1 - done, [N, 1])."""
+        carry = self.cell(tuple(c * keep for c in carry), latent)
         return carry[1], carry
 
     def unroll(self, x: torch.Tensor, carry, dones: torch.Tensor):
@@ -199,9 +204,10 @@ class LSTMTrunk(nn.Module):
         if hasattr(self, "norm"):
             latent = self.norm(latent)
         latent = latent.reshape(t, b, -1)
+        keep = _keep(dones)
         outs = []
         for i in range(t):
-            out, carry = self._cell(carry, latent[i], dones[i])
+            out, carry = self._cell(carry, latent[i], keep[i])
             outs.append(out)
         return torch.stack(outs), carry
 

@@ -132,7 +132,7 @@ def build_eval_policy(alg: str, obs_shape, n_actions: int,
                          "build_recurrent_eval_policy")
     shape = tuple(obs_shape)
     if alg in ("deepq", "dqn"):
-        from toybox_tpu_torch.rl.dqn import QNetwork
+        from toybox_tpu_torch.rl.dqn import QNetwork, epsilon_greedy
 
         module = _eval_module(lambda: QNetwork(
             network_factory(network)(shape, **network_kwargs), n_actions),
@@ -141,12 +141,7 @@ def build_eval_policy(alg: str, obs_shape, n_actions: int,
         @torch.no_grad()
         def q_step(obs, generator, eps: float = 0.01):
             q = module(obs)
-            greedy = q.argmax(-1)
-            rand = torch.randint(0, n_actions, greedy.shape,
-                                 generator=generator, device=q.device)
-            explore = torch.rand(greedy.shape, generator=generator,
-                                 device=q.device) < eps
-            actions = torch.where(explore, rand, greedy)
+            actions = epsilon_greedy(q, eps, generator)
             return actions, q.max(-1).values, torch.zeros_like(q[:, 0]), q
 
         return module, q_step

@@ -1,8 +1,9 @@
 """Training CLI (port of toybox_tpu.run, the reference baselines/run.py
 surface); the ported learners are ppo (recurrent too, with
---network=lstm|cnn_lstm|cnn_lnlstm), a2c (recurrent too) and acktr:
+--network=lstm|cnn_lstm|cnn_lnlstm), a2c (recurrent too), acktr, deepq
+(alias dqn), acer (recurrent too) and trpo (alias trpo_mpi):
 
-    python -m toybox_tpu_torch.run --alg=ppo|a2c|acktr \
+    python -m toybox_tpu_torch.run --alg=ppo|a2c|acktr|deepq|acer|trpo \
         --env=BreakoutToyboxNoFrameskip-v4 --num_timesteps=1e6 \
         [--num_envs=64] [--network=...] [--save_path=...] [--play] \
         [--device=cuda]
@@ -33,17 +34,25 @@ ALG_DEFAULTS = {
     # reference a2c defaults
     "a2c": dict(nsteps=5, gamma=0.99, ent_coef=0.01, lr=7e-4,
                 network="cnn"),
-    # the other learners' network defaults (the JAX package's): the eval
-    # heads read them (regress, sample_tests); the rest of each alg's
-    # defaults comes with its learner
-    "deepq": dict(network="conv_only"),
+    # reference deepq/defaults.py:1-17
+    "deepq": dict(network="conv_only", lr=1e-4, buffer_size=10000,
+                  exploration_fraction=0.1, exploration_final_eps=0.01,
+                  train_freq=4, learning_starts=10000,
+                  target_network_update_freq=1000, gamma=0.99,
+                  prioritized_replay=True, dueling=True),
     "dqn": "deepq",
-    "trpo": dict(network="cnn_small"),
+    # reference trpo_mpi atari defaults use cnn_small
+    "trpo": dict(network="cnn_small", nsteps=512, max_kl=0.001,
+                 cg_iters=10, cg_damping=0.1, vf_stepsize=3e-4, vf_iters=3),
     "trpo_mpi": "trpo",
-    "acer": dict(network="cnn_small"),
+    # reference acer defaults (acer/acer.py learn signature)
+    "acer": dict(network="cnn_small", nsteps=20, lr=7e-4, q_coef=0.5,
+                 ent_coef=0.01, replay_ratio=4, c=10.0, delta=1.0),
     # reference acktr defaults (acktr/acktr_disc.py)
     "acktr": dict(nsteps=20, lr=0.25, ent_coef=0.01, vf_coef=0.5,
                   kfac_clip=0.001),
+    # the learners not ported yet: their network defaults (the JAX
+    # package's), which the eval heads read (regress, sample_tests)
     "ppo1": dict(network="cnn"),
     "gail": dict(network="cnn_small"),
 }
@@ -106,8 +115,7 @@ def parse_cmdline_kwargs(args):
 
 
 #: the learners not ported yet (ROADMAP.md §1)
-MISSING_ALGS = ("deepq", "dqn", "acer", "trpo", "trpo_mpi", "ppo1", "gail",
-                "ddpg", "her")
+MISSING_ALGS = ("ppo1", "gail", "ddpg", "her")
 
 
 def get_learn_function(alg: str):
@@ -118,6 +126,12 @@ def get_learn_function(alg: str):
         from toybox_tpu_torch.rl.a2c import learn
     elif alg == "acktr":
         from toybox_tpu_torch.rl.acktr import learn
+    elif alg in ("deepq", "dqn"):
+        from toybox_tpu_torch.rl.dqn import learn
+    elif alg == "acer":
+        from toybox_tpu_torch.rl.acer import learn
+    elif alg in ("trpo", "trpo_mpi"):
+        from toybox_tpu_torch.rl.trpo import learn
     else:
         if alg not in ("her", "ddpg"):
             alg_defaults(alg)             # ValueError for an unknown alg
@@ -148,9 +162,13 @@ def train(args, extra_kwargs):
 def play(args, state):
     """Eval rollouts of the trained policy on PLAY_ENVS batched envs,
     printing each finished episode's raw return; the host reads the
-    returns once per chunk of PLAY_CHUNK agent steps. Returns them."""
+    returns once per chunk of PLAY_CHUNK agent steps. Returns them. The
+    actions are JAX's eval heads': epsilon-greedy at 0.01 on a deepq
+    Q network, else drawn from the policy's logits (the recurrent ones
+    threading the carry)."""
     from toybox_tpu_torch.envs.pipeline import make_rl_env
     from toybox_tpu_torch.rl.distributions import CategoricalPd
+    from toybox_tpu_torch.rl.dqn import QNetwork, epsilon_greedy
 
     n_envs = PLAY_ENVS
     game = env_id_to_game(args.env)
@@ -170,12 +188,14 @@ def play(args, state):
     for _ in range(PLAY_CHUNKS):
         finished = []
         for _ in range(PLAY_CHUNK):
-            if recurrent:
+            if isinstance(module, QNetwork):
+                actions = epsilon_greedy(module(st.frames), 0.01, gen)
+            elif recurrent:
                 logits, _, carry = module(st.frames, carry, done)
+                actions = CategoricalPd(logits).sample(gen)
             else:
-                logits, _ = module(st.frames)
-            st, _, _, done, info = env.step(
-                st, CategoricalPd(logits).sample(gen))
+                actions = CategoricalPd(module(st.frames)[0]).sample(gen)
+            st, _, _, done, info = env.step(st, actions)
             totals = totals + info["raw_reward"]
             finished.append(torch.where(done, totals, float("nan")))
             totals = torch.where(done, torch.zeros_like(totals), totals)

@@ -7,9 +7,10 @@ It drives the paths of the port through the entry points a user
 calls: the regress (serving) path of each frame-kernel game (Breakout,
 Space Invaders, Amidar) with the game's committed PPO model, PPO training
 (``rl.ppo.learn``) over the pipeline's in-kernel warp, at the Breakout
-recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs), and
-the rest of the env layer: Gridworld, the batched env's obs modes, the
-state samplers, seed-state extraction and the gym surface.
+recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs),
+every other learner (phases 18-20), and the rest of the env layer:
+Gridworld, the batched env's obs modes, the state samplers, seed-state
+extraction and the gym surface.
 Phases, each printing one line per game with its own wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every frame kernel (csrc/*.cu) with nvcc, all at once, and
@@ -36,10 +37,10 @@ Phases, each printing one line per game with its own wall time:
   7. a short torch.profiler window at 10 and 1024 envs: device kernels
      and device busy time per agent step;
   8. train (the slice's main path): ``learn`` on make_rl_env(game, 1024,
-     inkernel_warp=True), 3 updates at the Breakout recipe and one shorter
+     inkernel_warp=True), 2 updates at the Breakout recipe and one shorter
      update (nsteps TRAIN_SHORT_STEPS) for Space Invaders and Amidar, with
      the launch counts set to 0 just before each and read just after:
-     Breakout's warp kernel launches 3 x 128 times; metrics finite;
+     Breakout's warp kernel launches 2 x 128 times; metrics finite;
      seconds per update and frames/s; then one more Breakout update,
      train_step's collect and optimize halves timed apart, profiled (the
      warp kernel's device time a rollout step);
@@ -104,7 +105,7 @@ Phases, each printing one line per game with its own wall time:
 
  18. learners (a main path of each): ``run.main`` trains and saves, on
      the pipeline's in-kernel warp, a2c with cnn at its recipe (Breakout,
-     32 envs x nsteps 5, one block of 64 updates), a2c with cnn_lstm (4
+     32 envs x nsteps 5, one block of 16 updates), a2c with cnn_lstm (4
      updates), ppo with cnn_lstm (one update at the PPO recipe, 1 024 envs
      x nsteps 128, 4 x 4 minibatches), ppo with cnn_lnlstm on Space
      Invaders (one update at nsteps 32) and acktr at its recipe (32 envs x
@@ -122,8 +123,8 @@ Phases, each printing one line per game with its own wall time:
  19. replay learners (a main path of each): ``run.main`` trains and
      saves, on the pipeline's in-kernel warp, deepq on Space Invaders at
      its recipe (8 envs, train_freq 2, batch 64, a prioritized dueling
-     double-Q ring of 10 000; one block of 128 cycles, learning_starts
-     cut to 64 so that SGD and two target syncs run), acer cnn_small on
+     double-Q ring of 10 000; one block of 64 cycles, learning_starts
+     cut to 64 so that SGD and a target sync run), acer cnn_small on
      Breakout (16 envs x nsteps 20, 2 blocks of 4 cycles, so replay
      runs), acer cnn_lstm on Space Invaders (one block of 2 cycles) and
      trpo on Space Invaders (16 envs x nsteps 512, one update), each
@@ -131,11 +132,26 @@ Phases, each printing one line per game with its own wall time:
      step: train_freq, nsteps or 512 an update); then the optimize half
      of one deepq cycle, one acer cycle (with replay) and one trpo update
      on cuda against cpu from the same params, ring or batch and draws.
+ 20. imitation and continuous control (a main path of each):
+     ``run.main`` trains and saves, on the pipeline's in-kernel warp,
+     ppo1 on Amidar at its recipe (256 envs x 256 steps, minibatches of
+     4 096, one update) and GAIL on Breakout at its recipe (64 envs,
+     NatureCNN, max_kl 0.001, the expert models/Breakout.ppo1.model) cut
+     in depth: 4 096 expert transitions at stride 2, 2 BC epochs, nsteps
+     32, two updates at g_step 2 (the second takes the d-step); each
+     checked as phase 18 checks its runs, the warp kernel once an agent
+     step of the rollouts and of GAIL's expert extraction, whose time
+     and BC's are reported apart. Then ``ddpg.learn`` on the box identity
+     env at the JAX learning test's settings (8 envs, 600 cycles): its
+     mean reward above the test's threshold (-0.35), ms a cycle, the
+     busy share; ``run.main --alg=ddpg`` raises JAX's ValueError. Then
+     one ppo1 update, one GAIL-TRPO update with its d-step and one DDPG
+     cycle on cuda against cpu from the same params, batch and draws.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
-phase 13's serve chunks, ``learner_launches`` summed over phases 18's
-and 19's runs), the total time, and as the last line
+phase 13's serve chunks, ``learner_launches`` summed over the runs of
+phases 18, 19 and 20), the total time, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -143,6 +159,7 @@ CLI's log and model) go under build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import json
@@ -187,8 +204,8 @@ MODELS = ROOT / "models"
 SCRATCH = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
-SERVE_GAMES, SERVE_STEPS = 10, 300
-TRAIN_ENVS, TRAIN_UPDATES, TRAIN_SHORT_STEPS = 1024, 3, 32
+SERVE_GAMES, SERVE_STEPS = 10, 200
+TRAIN_ENVS, TRAIN_UPDATES, TRAIN_SHORT_STEPS = 1024, 2, 32
 RECIPE = dict(network="cnn", nsteps=128, nminibatches=4, noptepochs=4,
               lr=2.5e-4, cliprange=0.1, gamma=0.99, lam=0.95,
               ent_coef=0.01)                 # run.ALG_DEFAULTS["ppo"]
@@ -200,18 +217,20 @@ ENGINE_ENVS, ENGINE_STEPS = 256, 200
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
 PROFILE_STEPS = 5
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
-GATE_EPISODES, GATE_MAX_FRAMES = 2, 1000
+GATE_EPISODES, GATE_MAX_FRAMES = 2, 128
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
-HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 32, 16
+HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 16, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
-# the depths of phases 14 and 15 (pipeline and exact steps), of phase 7's
-# profile windows, phase 13's serve chunks and phase 16's extraction are
-# cut to keep the whole run under 600 s (PERF.md, section 6)
-GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 200, 25, 32
+# the depths of phases 14 and 15 (engine, pipeline and exact steps), of
+# phase 7's profile windows, phase 12's gate, phase 13's serve chunks and
+# phase 16's extraction, of phase 8's updates and of the learner runs of
+# phases 18 and 19 are cut to keep the whole run well under 600 s
+# (PERF.md, section 4)
+GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 100, 25, 32
 OBS_MODES = ("grayscale", "rgba", "rgb")
 OBS_EXACT_ENVS, OBS_EXACT_STEPS = 64, 10
 OBS_TIME_ENVS, OBS_STEPS = 1024, 20
-STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 2500, 100
+STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 1500, 100
 SEED_STATE_SEEDS = (0, 1, 2, 3)
 FIXTURES = ROOT / "tests" / "fixtures" / "seed_states"
 DEV = "cuda"
@@ -1687,8 +1706,8 @@ def gym_phase() -> str:
 PG_KEYS = ("policy_loss", "value_loss", "policy_entropy")
 LEARNERS = (
     ("a2c cnn", "breakout",
-     ["--alg=a2c", "--num_envs=32", "--updates_per_jit=64",
-      "--log_interval=64"], 64, 5, ("a2c", "cnn"), PG_KEYS),
+     ["--alg=a2c", "--num_envs=32", "--updates_per_jit=16",
+      "--log_interval=16"], 16, 5, ("a2c", "cnn"), PG_KEYS),
     ("a2c cnn_lstm", "breakout",
      ["--alg=a2c", "--network=cnn_lstm", "--num_envs=32",
       "--updates_per_jit=4", "--log_interval=4"], 4, 5,
@@ -1705,15 +1724,15 @@ LEARNERS = (
      ("acktr", "cnn"), PG_KEYS),
 )
 #: phase 19: the replay learners and TRPO at their recipes
-#: (docs/TRAINING.md), cut in depth: deepq one block of 128 cycles with
-#: learning_starts 64 (SGD from cycle 5; target syncs at 1 000 and 2 000
-#: env steps), acer 2 blocks of 4 cycles (replay from the second),
+#: (docs/TRAINING.md), cut in depth: deepq one block of 64 cycles with
+#: learning_starts 64 (SGD from cycle 5; a target sync at 1 000 env
+#: steps), acer 2 blocks of 4 cycles (replay from the second),
 #: acer cnn_lstm one block of 2, trpo one update
 REPLAY_LEARNERS = (
     ("deepq", "space_invaders",
      ["--alg=deepq", "--num_envs=8", "--train_freq=2", "--batch_size=64",
-      "--jit_cycles=128", "--log_interval=1", "--learning_starts=64"],
-     128, 2, ("deepq", "conv_only"), ("loss", "mean_q", "epsilon")),
+      "--jit_cycles=64", "--log_interval=1", "--learning_starts=64"],
+     64, 2, ("deepq", "conv_only"), ("loss", "mean_q", "epsilon")),
     ("acer cnn_small", "breakout",
      ["--alg=acer", "--num_envs=16", "--cycles_per_jit=4",
       "--log_interval=4"], 8, 20, ("acer", "cnn_small"),
@@ -1791,14 +1810,17 @@ def _busy(fn, label: str) -> str:
             f"({100 * busy / wall:.1f}%)")
 
 
-def learner_run(label, game, args, updates, nsteps, head, keys):
+def learner_run(label, game, args, updates, nsteps, head, keys,
+                extra_steps=0):
     """A main path: run.main trains ``updates`` updates (or cycles) and
     saves the policy, the launch counts set to 0 just before and read just
-    after; each update's collect and optimize timed apart; the last logged
-    row's ``keys`` finite. Then the saved file through
-    ``load_eval_params`` (equal params), and one more collect (at most
-    LEARNER_PROFILE_ENVS envs x LEARNER_PROFILE_STEPS steps) and optimize
-    under the profiler. Returns (launches, detail, state)."""
+    after (the warp kernel once an agent step: updates x nsteps, and
+    ``extra_steps`` more outside the updates); each update's collect and
+    optimize timed apart; the last logged row's ``keys`` finite. Then the
+    saved file through ``load_eval_params`` (equal params), and one more
+    collect (at most LEARNER_PROFILE_ENVS envs x LEARNER_PROFILE_STEPS
+    steps) and optimize under the profiler. Returns (launches, detail,
+    state)."""
     from toybox_tpu_torch.rl.eval_adapter import load_eval_params
 
     g = next(x for x in GAMES if x.name == game)
@@ -1820,9 +1842,9 @@ def learner_run(label, game, args, updates, nsteps, head, keys):
     warp, single = g.kernel + "_fused_warp", g.kernel
     check(state.update == updates == len(timed.rows),
           f"{label} trained {state.update} updates, timed {len(timed.rows)}")
-    check(launches[warp] == updates * nsteps,
+    check(launches[warp] == updates * nsteps + extra_steps,
           f"{label}: {warp} launched {launches[warp]} times in {updates} "
-          f"updates of {nsteps} steps: {launches}")
+          f"updates of {nsteps} steps and {extra_steps} more: {launches}")
     check(launches[single] > 0, f"{label}: {single} never launched")
     rows = list(csv.DictReader(
         (log_dir / "progress.csv").read_text().splitlines()))
@@ -1860,7 +1882,9 @@ def learner_run(label, game, args, updates, nsteps, head, keys):
               f"recipe's {RECIPE_FRAMES[label]:.0f} frames in "
               f"{RECIPE_FRAMES[label] / fps / 3600:.2f} h; {'; '.join(shares)}"
               f"; launches {single} {launches[single]}, {warp} "
-              f"{launches[warp]} ({launches[warp] / updates:.0f} an update); "
+              f"{launches[warp]} "
+              f"({(launches[warp] - extra_steps) / updates:.0f} an update"
+              f"{f', {extra_steps} outside' if extra_steps else ''}); "
               f"last row " + ", ".join(
                   f"{k} {float(rows[-1][k]):.4g}" for k in
                   keys + (("eprewmean",) if "eprewmean" in rows[-1] else ()))
@@ -1887,6 +1911,21 @@ def _diff(mods: dict, before: dict) -> tuple:
     return moved, diff
 
 
+def _check_moved(label: str, mods: dict, before: dict, tol: float,
+                 relative: bool = False) -> str:
+    """The cuda and cpu modules ``mods`` after one update from ``before``:
+    the update moved the params by more than 10 bounds and the two agree
+    within the bound (``tol``, or ``tol`` of the move when relative)."""
+    moved, diff = _diff(mods, before)
+    bound = tol * moved if relative else tol
+    check(moved > 10 * bound, f"{label}: the update moved the params by "
+                              f"only {moved}")
+    check(diff <= bound, f"{label}: cuda and cpu differ by {diff} (bound "
+                         f"{bound:.3g})")
+    return (f"{label} moved {moved:.3g}, cuda vs cpu {diff:.3g} (tolerance "
+            f"{tol:g}{' of the move' if relative else ''})")
+
+
 def learner_update_phase() -> str:
     """One update of each learner on cuda and on cpu from the same params
     and batch (a cpu collect at LEARNER_CHECK_ENVS envs): params within
@@ -1898,12 +1937,7 @@ def learner_update_phase() -> str:
     def compare(label, mods, before, atol, run_one):
         for d, m in mods.items():
             run_one(d, m)
-        moved, diff = _diff(mods, before)
-        check(moved > 10 * atol, f"{label}: the update moved the params by "
-                                 f"only {moved}")
-        check(diff <= atol, f"{label}: cuda and cpu updates differ by {diff}")
-        out.append(f"{label} moved {moved:.3g}, cuda vs cpu {diff:.3g} "
-                   f"(tolerance {atol:g})")
+        out.append(_check_moved(label, mods, before, atol))
 
     def pair(module, copy):
         before = {k: v.clone() for k, v in module.state_dict().items()}
@@ -2018,15 +2052,9 @@ def replay_update_phase() -> str:
         states = {DEV: copy_to(DEV), "cpu": state}
         for d, st in states.items():
             optimize(d, st)
-        moved, diff = _diff({d: st.module for d, st in states.items()},
-                            before)
-        bound = tol * moved if relative else tol
-        check(moved > 10 * bound, f"{label}: the update moved the params "
-                                  f"by only {moved}")
-        check(diff <= bound, f"{label}: cuda and cpu differ by {diff} "
-                             f"(bound {bound:.3g})")
-        out.append(f"{label} moved {moved:.3g}, cuda vs cpu {diff:.3g} "
-                   f"(tolerance {tol:g}{' of the move' if relative else ''})")
+        out.append(_check_moved(label, {d: st.module for d, st in
+                                        states.items()}, before, tol,
+                                relative))
 
     def load(module, like):
         module.load_state_dict(like.state_dict())
@@ -2094,6 +2122,309 @@ def replay_update_phase() -> str:
 
     compare("trpo", st, trpo_copy, lambda d, s: step.optimize(
         s, (tuple(x.to(d) for x in batch), roll)), TRPO_RTOL, relative=True)
+    return "; ".join(out)
+
+
+#: phase 20: ppo1 and BC + GAIL at their recipes (docs/TRAINING.md), cut
+#: in depth: ppo1 on Amidar one update; GAIL on Breakout (the expert
+#: Breakout.ppo1.model, NatureCNN) with 4 096 expert transitions at stride
+#: 2 (of 32 768 at 16), 2 BC epochs (of 100), nsteps 32 (of 128) and two
+#: updates at g_step 2 (the second takes the d-step)
+IMITATION_LEARNERS = (
+    ("ppo1", "amidar",
+     ["--alg=ppo1", "--num_envs=256", "--optim_batchsize=4096"], 1, 256,
+     ("ppo1", "cnn"), ("loss_pol_surr", "loss_vf_loss", "loss_ent",
+                       "loss_kl")),
+    ("gail", "breakout",
+     ["--alg=gail", "--num_envs=64", "--network=cnn", "--max_kl=0.001",
+      f"--load_path={MODELS / 'Breakout.ppo1.model'}",
+      "--n_expert_transitions=4096", "--expert_stride=2", "--bc_epochs=2",
+      "--nsteps=32", "--g_step=2", "--log_interval=1"], 2, 32,
+     ("gail", "cnn"), ("surrogate_gain", "kl", "vf_loss", "adv_reward",
+                       "disc_loss", "disc_acc")),
+)
+RECIPE_FRAMES.update({"ppo1": 120e6, "gail": 1e6})
+#: the BC recipe: 32 768 transitions at stride 16 on 64 envs, 100 epochs of
+#: 256 minibatches of 128
+BC_RECIPE_STEPS, BC_RECIPE_MINIBATCHES = 32768 // 64 * 16, 100 * 256
+#: the JAX learning test's DDPG (tests/test_rl_learning.py:116-130)
+DDPG_ENVS, DDPG_CYCLES, DDPG_THRESHOLD = 8, 600, -0.35
+DDPG_KW = dict(actor_lr=3e-3, critic_lr=3e-3, batch_size=128,
+               buffer_size=8192, noise_scale=0.2, learning_starts=256)
+# phase 20, cuda against cpu: ppo1 16 Adam steps (lr 1e-3), as ppo's;
+# GAIL-TRPO's policy relative to its step's largest move (as TRPO's);
+# DDPG one cycle of two Adam steps. GAIL's value network (3 Adam steps)
+# and discriminator (one) take optax.adam's eps 1e-8, which turns
+# float-order noise in near-zero gradients into steps of up to the lr on
+# a few weights (on an H100: 5.7e-4 and 2.6e-5 apart), so each is held by
+# its gradient at the same params and by its outputs after the update,
+# both relative to their largest, and its params are held absolutely on
+# the weights whose gradient exceeds GAIL_STRONG_GRAD of the largest
+PPO1_ATOL, GAIL_RTOL, DDPG_ATOL = 1e-5, 1e-4, 1e-6
+GAIL_GRAD_RTOL, GAIL_OUT_RTOL = 1e-5, 1e-4
+GAIL_STRONG_GRAD, GAIL_PARAM_ATOL = 1e-3, 1e-5
+
+
+class _Timed:
+    """Wraps ``module.name`` while in use: the wall time of each call to
+    a sync (torch.cuda.synchronize before and after)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.secs = module, name, []
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def gail_run(spec) -> tuple:
+    """learner_run of the GAIL recipe with the expert extraction and BC
+    timed apart; the warp kernel launches once an agent step of the
+    extraction (its recorded steps x stride) and of the rollouts."""
+    from toybox_tpu_torch.rl import gail
+
+    args = spec[2]
+
+    def arg(name):
+        return int(next(a for a in args if a.startswith(f"--{name}="))
+                   .split("=")[1])
+
+    n_envs, stride = arg("num_envs"), arg("expert_stride")
+    n = arg("n_expert_transitions")
+    ext_steps = -(-n // n_envs) * stride
+    bc_steps = arg("bc_epochs") * -(-n // min(128, n))
+    with _Timed(gail, "generate_expert_dataset") as ext, \
+            _Timed(gail, "behavior_clone") as bc:
+        launches, detail, state = learner_run(*spec, extra_steps=ext_steps)
+    check(len(ext.secs) == len(bc.secs) == 1, "GAIL extracted or cloned "
+          f"{len(ext.secs)} / {len(bc.secs)} times")
+    first = next(csv.DictReader((SCRATCH / spec[0] / "progress.csv")
+                                .read_text().splitlines()))
+    bc_loss = float(first["bc_final_loss"])
+    check(math.isfinite(bc_loss), f"gail bc_final_loss = {bc_loss}")
+    ms_step = 1e3 * ext.secs[0] / ext_steps
+    ms_bc = 1e3 * bc.secs[0] / bc_steps
+    return launches, (
+        f"{detail}; expert extraction {ext.secs[0]:.2f} s ({ext_steps} agent "
+        f"steps of {n_envs} envs, {ms_step:.1f} ms a step: the recipe's "
+        f"{BC_RECIPE_STEPS} steps in {BC_RECIPE_STEPS * ms_step / 6e4:.1f} "
+        f"min); BC {bc.secs[0]:.2f} s ({bc_steps} minibatches of 128, "
+        f"{ms_bc:.2f} ms each: the recipe's {BC_RECIPE_MINIBATCHES} in "
+        f"{BC_RECIPE_MINIBATCHES * ms_bc / 6e4:.1f} min; its last epoch's "
+        f"loss {bc_loss:.4f})"), state
+
+
+def ddpg_run() -> str:
+    """A main path: ``ddpg.learn`` on the box identity env at the JAX
+    learning test's settings, DDPG_CYCLES cycles; the last logged mean
+    reward beats DDPG_THRESHOLD and every metric is finite (DDPG saves
+    nothing, as in JAX); ms a cycle; the busy share of 20 more cycles;
+    ``run.main --alg=ddpg`` raises JAX's ValueError."""
+    from toybox_tpu_torch.rl import ddpg
+    from toybox_tpu_torch.rl.test_envs import make_box_identity_env
+
+    log = _Rows()
+    env = make_box_identity_env(DDPG_ENVS, dim=2, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ddpg.learn(env=env, action_dim=2,
+                       total_timesteps=DDPG_CYCLES * DDPG_ENVS,
+                       log_interval=DDPG_CYCLES, logger=log, device=DEV,
+                       **DDPG_KW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(state.update == DDPG_CYCLES and len(log.rows) == 1,
+          f"ddpg ran {state.update} cycles, logged {len(log.rows)} rows")
+    row = log.rows[0]
+    for k in ("critic_loss", "actor_loss", "mean_reward"):
+        check(math.isfinite(row[k]), f"ddpg {k} = {row[k]}")
+    check(row["mean_reward"] > DDPG_THRESHOLD,
+          f"ddpg mean reward {row['mean_reward']} <= {DDPG_THRESHOLD}")
+    _, cycle, _ = ddpg.make_ddpg(env, 2, device=DEV, **DDPG_KW)
+
+    def more():
+        for _ in range(20):
+            cycle(state)
+
+    busy = _busy(more, "20 cycles")
+    try:
+        run.main(["--alg=ddpg", f"--device={DEV}"])
+    except ValueError as e:
+        check("toybox_tpu_torch.rl.ddpg.learn" in str(e), f"ddpg CLI: {e}")
+    else:
+        check(False, "run.main --alg=ddpg did not raise")
+    ms = 1e3 * secs / DDPG_CYCLES
+    return (f"ddpg on the box identity env ({DDPG_ENVS} envs, dim 2), "
+            f"{DDPG_CYCLES} cycles in {secs:.2f} s ({ms:.2f} ms a cycle, "
+            f"{DDPG_ENVS * DDPG_CYCLES / secs:.0f} env steps/s); mean reward {row['mean_reward']:.4f} (> "
+            f"{DDPG_THRESHOLD}), critic loss {row['critic_loss']:.4g}, actor "
+            f"loss {row['actor_loss']:.4g}; {busy}; run.main --alg=ddpg "
+            "raises JAX's ValueError")
+
+
+def imitation_update_phase() -> str:
+    """One ppo1 update, one GAIL-TRPO update with its d-step and one DDPG
+    cycle on cuda and on cpu from the same params, batch and draws (cpu
+    collects at LEARNER_CHECK_ENVS Breakout envs make the batches): the
+    params within each one's tolerance."""
+    from toybox_tpu_torch.rl import ddpg, gail, ppo1
+    from toybox_tpu_torch.rl.test_envs import make_box_identity_env
+
+    env = make_rl_env("breakout", LEARNER_CHECK_ENVS, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    out = []
+
+    def twin(module, d):
+        return copy.deepcopy(module).to(d)
+
+    def snap(module):
+        return {k: v.clone() for k, v in module.state_dict().items()}
+
+    # ppo1: cnn, 8 envs x 8 steps, minibatches of 16, 4 epochs
+    init_fn, step = ppo1.make_ppo1(env, network="cnn",
+                                   timesteps_per_actorbatch=8,
+                                   optim_batchsize=16, device="cpu")
+    st = init_fn(0)
+    batch, buf = step.collect(st)
+    perms = torch.stack([torch.randperm(64, generator=gen)
+                         for _ in range(4)])
+    before = snap(st.module)
+    module = twin(st.module, DEV)
+    states = {"cpu": st, DEV: ppo1.PPO1State(
+        module=module, old=twin(st.old, DEV),
+        adam=ppo.AdamState.zeros_like(list(module.parameters())),
+        env_state=None, ob_rms=ppo1.ObFilter(
+            st.ob_rms.mean.to(DEV), st.ob_rms.var.to(DEV),
+            st.ob_rms.count.to(DEV)),
+        kl_beta=st.kl_beta.to(DEV), generator=None)}
+    for d, s in states.items():
+        bufd = ppo.Rollout(**{f.name: getattr(buf, f.name).to(d)
+                              for f in dataclasses.fields(buf)})
+        step.optimize(s, (tuple(x.to(d) for x in batch), bufd),
+                      {"perms": perms.to(d)})
+    out.append(_check_moved("ppo1", {d: s.module for d, s in states.items()},
+                            before, PPO1_ATOL))
+
+    # GAIL-TRPO: cnn, 8 envs x 8 steps, random expert frames, one d-step
+    eobs = torch.randint(0, 256, (256, 84, 84, 4), generator=gen,
+                         dtype=torch.uint8)
+    eacts = torch.randint(0, 4, (256,), generator=gen)
+    init_fn, step = gail.make_gail_trpo(env, eobs, eacts, network="cnn",
+                                        nsteps=8, max_kl=0.001, device="cpu")
+    st = init_fn(0)
+    batch, roll = step.collect(st)
+    fobs, facts, _, _, fret = batch
+    idx = torch.randint(0, 256, (1, 64), generator=gen)
+    before = snap(st.module)
+    vf, disc = twin(st.vf, DEV), twin(st.disc, DEV)
+    states = {"cpu": st, DEV: gail.GAILTRPOState(
+        module=twin(st.module, DEV), vf=vf,
+        vf_adam=ppo.AdamState.zeros_like(list(vf.parameters())),
+        disc=disc,
+        disc_adam=ppo.AdamState.zeros_like(list(disc.parameters())),
+        env_state=None, generator=None, expert_obs=eobs.to(DEV),
+        expert_onehot=st.expert_onehot.to(DEV))}
+
+    def fit(what, s, d):
+        """(loss, outputs) of the value network or the discriminator on
+        the batch (the d-step's expert rows for the discriminator)."""
+        onehot = torch.nn.functional.one_hot(facts, 4).float().to(d)
+        if what == "vf":
+            v = s.vf(fobs.to(d))[1]
+            return torch.square(v - fret.to(d)).mean(), v
+        e = idx[0].to(d)
+        return gail.disc_loss(s.disc, s.expert_obs[e], s.expert_onehot[e],
+                              fobs.to(d), onehot, 1e-3)[0], \
+            s.disc(fobs.to(d), onehot)
+
+    def flat(tensors):
+        return torch.cat([t.detach().reshape(-1).cpu() for t in tensors])
+
+    grads, params0, outs0 = {}, {}, {}
+    for what in ("vf", "disc"):
+        params0[what] = flat(getattr(st, what).parameters())
+        with torch.no_grad():
+            outs0[what] = fit(what, st, "cpu")[1]
+        grads[what] = {d: flat(torch.autograd.grad(
+            fit(what, s, d)[0], list(getattr(s, what).parameters()),
+            materialize_grads=True)) for d, s in states.items()}
+    for d, s in states.items():
+        step.optimize(s, (tuple(x.to(d) for x in batch),
+                          {k: v.to(d) for k, v in roll.items()}),
+                      {"expert_idx": idx.to(d)})
+    check(float(states["cpu"].disc_metrics["disc_loss"]) > 0,
+          "gail: the d-step did not run")
+    out.append(_check_moved("gail-trpo policy", {
+        d: s.module for d, s in states.items()}, before, GAIL_RTOL,
+        relative=True))
+    for what in ("vf", "disc"):
+        g = grads[what]
+        g_rel = float((g[DEV] - g["cpu"]).abs().max() / g["cpu"].abs().max())
+        check(g_rel <= GAIL_GRAD_RTOL, f"gail-trpo {what}: the gradients at "
+                                       f"the same params differ by {g_rel}")
+        with torch.no_grad():
+            o = {d: fit(what, s, d)[1].cpu() for d, s in states.items()}
+        scale = o["cpu"].abs().max()
+        o_moved = float((o["cpu"] - outs0[what]).abs().max() / scale)
+        o_rel = float((o[DEV] - o["cpu"]).abs().max() / scale)
+        check(o_moved > 10 * GAIL_OUT_RTOL, f"gail-trpo {what}: the update "
+              f"moved the outputs by only {o_moved} of the largest")
+        check(o_rel <= GAIL_OUT_RTOL, f"gail-trpo {what}: the outputs after "
+                                      f"the update differ by {o_rel}")
+        # the weights whose gradient stands above float noise: Adam's step
+        # there is about lr * sign(g) on both devices
+        strong = g["cpu"].abs() > GAIL_STRONG_GRAD * g["cpu"].abs().max()
+        p = {d: flat(getattr(s, what).parameters())[strong]
+             for d, s in states.items()}
+        moved = float((p["cpu"] - params0[what][strong]).abs().max())
+        off = float((p[DEV] - p["cpu"]).abs().max())
+        check(moved > 10 * GAIL_PARAM_ATOL, f"gail-trpo {what}: the update "
+              f"moved the strong-gradient params by only {moved}")
+        check(off <= GAIL_PARAM_ATOL, f"gail-trpo {what}: cuda and cpu "
+              f"differ by {off} on the strong-gradient params")
+        out.append(f"gail-trpo {what}: gradient at the same params cuda vs "
+                   f"cpu {g_rel:.3g} of its largest (tolerance "
+                   f"{GAIL_GRAD_RTOL:g}); outputs moved {o_moved:.3g} of "
+                   f"the largest, cuda vs cpu after the update {o_rel:.3g} "
+                   f"(tolerance {GAIL_OUT_RTOL:g}); the {int(strong.sum())} "
+                   f"of {strong.numel()} params with |g| > "
+                   f"{GAIL_STRONG_GRAD:g} of the largest moved {moved:.3g}, "
+                   f"cuda vs cpu {off:.3g} (tolerance {GAIL_PARAM_ATOL:g})")
+
+    # DDPG: one cycle from the same init, targets and draws
+    targets = torch.rand((2, LEARNER_CHECK_ENVS, 2), generator=gen) * 2 - 1
+    draws = {"noise": torch.randn((LEARNER_CHECK_ENVS, 2), generator=gen),
+             "idx": torch.randint(0, LEARNER_CHECK_ENVS, (64,),
+                                  generator=gen)}
+    states = {}
+    for d in ("cpu", DEV):
+        benv = make_box_identity_env(LEARNER_CHECK_ENVS, dim=2, device=d,
+                                     targets=targets.to(d))
+        init_fn, cycle, _ = ddpg.make_ddpg(benv, 2, learning_starts=0,
+                                           actor_lr=3e-3, critic_lr=3e-3,
+                                           buffer_size=256, device=d)
+        states[d] = init_fn(0)
+        if d == "cpu":
+            before = {w: snap(getattr(states[d], w))
+                      for w in ("actor", "critic")}
+        cycle(states[d], {k: v.to(d) for k, v in draws.items()})
+    for w in ("actor", "critic"):
+        out.append(_check_moved(f"ddpg {w}", {
+            d: getattr(s, w) for d, s in states.items()}, before[w],
+            DDPG_ATOL))
     return "; ".join(out)
 
 
@@ -2274,6 +2605,21 @@ def main() -> int:
         del state
     t0 = time.perf_counter()
     phase(19, "replay learners", t0, replay_update_phase())
+
+    # 20. ppo1 and BC + GAIL through run.main, DDPG through ddpg.learn
+    for spec in IMITATION_LEARNERS:
+        t0 = time.perf_counter()
+        run_fn = gail_run if spec[0] == "gail" else (
+            lambda spec: learner_run(*spec))
+        mine, detail, state = run_fn(spec)
+        for k, v in mine.items():
+            learner_launches[k] = learner_launches.get(k, 0) + v
+        phase(20, "imitation", t0, detail)
+        del state
+    t0 = time.perf_counter()
+    phase(20, "imitation", t0, ddpg_run())
+    t0 = time.perf_counter()
+    phase(20, "imitation", t0, imitation_update_phase())
 
     kernels = []
     for g in GAMES:

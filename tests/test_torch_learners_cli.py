@@ -1,8 +1,8 @@
 """``python -m toybox_tpu_torch.run`` trains and saves each on-policy
-learner ported after PPO (a2c, acktr, recurrent ppo) on the CPU, and the
-saved file loads with the JAX package's ``load_params`` (into the JAX
-module's own template) and with the port's ``load_eval_params``, with
-equal params."""
+learner ported after PPO (a2c, acktr, recurrent ppo, ppo1) on the CPU,
+and the saved file loads with the JAX package's ``load_params`` (into
+the JAX module's own template) and with the port's ``load_eval_params``,
+with equal params."""
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +45,8 @@ def _jax_template(alg, network):
     (["--alg=ppo", "--network=cnn_lstm", "--num_envs=2", "--nsteps=4",
       "--nminibatches=2", "--noptepochs=1", "--num_timesteps=64"], "ppo",
      "cnn_lstm", 2),
+    (["--alg=ppo1", "--num_envs=2", "--nsteps=4", "--optim_batchsize=4",
+      "--noptepochs=1", "--num_timesteps=64"], "ppo1", "cnn", 2),
 ])
 def test_run_main_trains_and_saves(args, alg, network, updates, tmp_path):
     path = str(tmp_path / "model")

@@ -339,7 +339,9 @@ def test_run_main_refuses_other_algs_and_plays(tmp_path, monkeypatch,
     with pytest.raises(ValueError, match="unknown alg"):
         run.main(_tiny_cli(tmp_path, "--alg=nope"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(_tiny_cli(tmp_path, "--alg=ppo1"))
+        run.main(_tiny_cli(tmp_path, "--alg=her"))
+    with pytest.raises(ValueError, match="toybox_tpu_torch.rl.ddpg.learn"):
+        run.main(_tiny_cli(tmp_path, "--alg=ddpg"))
     with pytest.raises(ValueError, match="key=value"):
         run.main(_tiny_cli(tmp_path, "--oops"))
     monkeypatch.setattr(run, "PLAY_ENVS", 2)

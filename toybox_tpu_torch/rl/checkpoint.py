@@ -17,6 +17,9 @@ port's modules.
   MLP, deepq's QNetwork, dueling or not, acktr's KfacCNNPolicy in both
   its forms, and the LSTM trunks); it raises on a tree it does not know.
   ``params_to_flax`` is its inverse on the ``params`` collection.
+- ``dense_stack_from_flax`` and ``dense_stack_to_flax`` carry a tree of
+  Dense layers only (GAIL's discriminator, DDPG's actor and critic) into
+  and out of a module of ``layers``; JAX saves no such tree to a file.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 __all__ = ["unpackb", "packb", "load_flax_tree", "save_flax_tree",
            "flax_template", "state_dict_template", "params_from_flax",
-           "params_to_flax", "load_state_dict"]
+           "params_to_flax", "dense_stack_from_flax", "dense_stack_to_flax",
+           "load_state_dict"]
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -490,6 +494,42 @@ def params_to_flax(state_dict: dict, template: str | None = None) -> dict:
         raise ValueError(f"state_dict entries not in the {found!r} "
                          f"template: {sorted(set(sd) - used)}")
     return {"params": p}
+
+
+def dense_stack_from_flax(tree: dict) -> dict:
+    """A flax tree of Dense layers only, ``{Dense_0, ..., Dense_<n-1>}``
+    (kernels [in, out]; GAIL's Discriminator, DDPG's Actor and Critic) ->
+    the state_dict of a port module whose ``layers`` are the same
+    nn.Linear layers in order: ``layers.<i>.weight`` [out, in],
+    ``layers.<i>.bias``. No input rows are reordered: these modules read
+    their inputs flattened as stored."""
+    p = _params(tree)
+    n = len(p)
+    if set(p) != {f"Dense_{i}" for i in range(n)}:
+        raise ValueError(f"not a Dense stack: layers {sorted(p)}")
+    sd = {}
+    for i in range(n):
+        d = _leaf(p[f"Dense_{i}"], {"kernel", "bias"}, (f"Dense_{i}",))
+        sd[f"layers.{i}.weight"] = np.asarray(d["kernel"]).T
+        sd[f"layers.{i}.bias"] = d["bias"]
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in sd.items()}
+
+
+def dense_stack_to_flax(state_dict: dict) -> dict:
+    """The inverse of ``dense_stack_from_flax``: ``{"params": {Dense_<i>:
+    {kernel, bias}}}`` as numpy f32 arrays."""
+    n = sum(1 for k in state_dict if k.endswith(".weight"))
+    if set(state_dict) != {f"layers.{i}.{w}" for i in range(n)
+                           for w in ("weight", "bias")}:
+        raise ValueError(f"not a Dense stack: {sorted(state_dict)}")
+
+    def np32(k):
+        return state_dict[k].detach().cpu().numpy().astype(np.float32)
+
+    return {"params": {f"Dense_{i}": {
+        "kernel": np.ascontiguousarray(np32(f"layers.{i}.weight").T),
+        "bias": np32(f"layers.{i}.bias")} for i in range(n)}}
 
 
 def load_state_dict(path) -> dict:

@@ -8,12 +8,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from toybox_tpu_torch.rl.distributions import CategoricalPd, make_pdtype
+from toybox_tpu_torch.rl.distributions import (CategoricalPd, gumbel,
+                                               gumbel_max, make_pdtype)
 from toybox_tpu_torch.rl.models import NETWORKS, RECURRENT_NETWORKS, \
     init_trunk, network_factory
 
 __all__ = ["NETWORKS", "RECURRENT_NETWORKS", "EVAL_ALGS", "PolicyWithValue",
-           "build_policy", "build_eval_policy", "build_recurrent_eval_policy",
+           "noise_step", "build_policy", "build_eval_policy", "build_recurrent_eval_policy",
            "build_eval_head"]
 
 #: the algorithms whose checkpoints an eval head loads (aliases included)
@@ -55,6 +56,25 @@ def expected_q(logits: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (torch.softmax(logits, -1) * q).sum(-1)
 
 
+def noise_step(forward, noise=None):
+    """A rollout step_fn(obs, generator) -> (actions, values, neglogps,
+    logits) over ``forward(obs) -> (logits, values)``, without gradients:
+    actions are argmax(logits + g), a categorical draw, g the next of
+    ``noise`` (an iterator of Gumbel noise a caller hands in, as the tests
+    do with JAX's draws) or else Gumbel noise from ``generator``."""
+
+    @torch.no_grad()
+    def step_fn(obs: torch.Tensor, generator: torch.Generator):
+        logits, values = forward(obs)
+        g = (next(noise) if noise is not None else
+             gumbel(logits.shape, generator, logits.device, logits.dtype))
+        actions = gumbel_max(logits, g)
+        return actions, values, CategoricalPd(logits).neglogp(actions), \
+            logits
+
+    return step_fn
+
+
 def build_policy(obs_shape, action_space, network: str = "cnn",
                  device="cuda", **network_kwargs):
     """(module, init_fn, step_fn, value_fn), the training form:
@@ -64,11 +84,12 @@ def build_policy(obs_shape, action_space, network: str = "cnn",
       a CPU generator seeded with ``seed`` so that every device gets the
       same parameters, and returns the module;
     - step_fn(obs, generator) -> (actions, values, neglogps, logits),
-      without gradients, actions drawn from the categorical policy with
-      noise from ``generator`` (on the module's device);
+      ``noise_step(module)``: without gradients, actions drawn from the
+      categorical policy with noise from ``generator`` (on the module's
+      device);
     - value_fn(obs) -> values, without gradients.
     """
-    n_pdparams, make_pd = make_pdtype(action_space)
+    n_pdparams, _ = make_pdtype(action_space)
     trunk = network_factory(network)(tuple(obs_shape), **network_kwargs)
     module = PolicyWithValue(trunk, n_pdparams).to(device)
 
@@ -83,17 +104,10 @@ def build_policy(obs_shape, action_space, network: str = "cnn",
         return module
 
     @torch.no_grad()
-    def step_fn(obs: torch.Tensor, generator: torch.Generator):
-        logits, value = module(obs)
-        pd = make_pd(logits)
-        actions = pd.sample(generator)
-        return actions, value, pd.neglogp(actions), logits
-
-    @torch.no_grad()
     def value_fn(obs: torch.Tensor) -> torch.Tensor:
         return module(obs)[1]
 
-    return module, init_fn, step_fn, value_fn
+    return module, init_fn, noise_step(module), value_fn
 
 
 def _check_alg(alg: str) -> None:

@@ -71,19 +71,22 @@ def clip_by_global_norm(grads: list, max_norm: float) -> list:
 
 @torch.no_grad()
 def adam_update(params: list, grads: list, state: AdamState, lr,
-                b1: float = 0.9, b2: float = 0.999,
-                eps: float = 1e-5) -> None:
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-5,
+                apply_step: bool = True) -> None:
     """One optax scale_by_adam step scaled by -lr, applied in place:
     mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, then
-    p += (-(mu_hat / (sqrt(nu_hat) + eps))) * lr."""
+    p += (-(mu_hat / (sqrt(nu_hat) + eps))) * lr. Without ``apply_step``
+    the moments and the count advance and the parameters stay (a step
+    masked to zero, as DDPG's actor before learning_starts)."""
     state.count += 1
     c1 = 1.0 - np.float32(b1) ** np.float32(state.count)
     c2 = 1.0 - np.float32(b2) ** np.float32(state.count)
     for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
         mu.copy_((1.0 - b1) * g + b1 * mu)
         nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-        step = (mu / float(c1)) / (torch.sqrt(nu / float(c2)) + eps)
-        p.add_(-step * lr)
+        if apply_step:
+            step = (mu / float(c1)) / (torch.sqrt(nu / float(c2)) + eps)
+            p.add_(-step * lr)
 
 
 @dataclasses.dataclass

@@ -127,12 +127,13 @@ class TRPOState:
 
 
 def trpo_batch(buf: ppo.Rollout, last_value: torch.Tensor, gamma: float,
-               lam: float) -> tuple:
+               lam: float, rewards: torch.Tensor | None = None) -> tuple:
     """The flat batch (obs, actions, normalised advantages, old
     neglogps, returns) of a rollout whose values are the value network's:
-    GAE(lam) advantages, returns = advantages + values."""
-    advs = ppo.gae(buf.values, buf.rewards, buf.dones, last_value, gamma,
-                   lam)
+    GAE(lam) advantages of ``rewards`` [nsteps, N] (the rollout's unless
+    given), returns = advantages + values."""
+    advs = ppo.gae(buf.values, buf.rewards if rewards is None else rewards,
+                   buf.dones, last_value, gamma, lam)
     returns = advs + buf.values
 
     def flat(x):
@@ -140,6 +141,30 @@ def trpo_batch(buf: ppo.Rollout, last_value: torch.Tensor, gamma: float,
 
     return (flat(buf.obs), flat(buf.actions), ppo.normalize(flat(advs)),
             flat(buf.neglogps), flat(returns))
+
+
+def value_net_step(pi_step, vf_value):
+    """A rollout step_fn: ``pi_step``'s actions, neglogps and logits with
+    the separate value network's values."""
+
+    def step_fn(obs, generator):
+        actions, _, neglogps, logits = pi_step(obs, generator)
+        return actions, vf_value(obs), neglogps, logits
+
+    return step_fn
+
+
+def fit_value(vf, adam: ppo.AdamState, fobs: torch.Tensor,
+              fret: torch.Tensor, iters: int, lr: float) -> torch.Tensor:
+    """``iters`` Adam steps (optax.adam: eps 1e-8) of the value network on
+    mean (V - returns)^2, in place; the last step's loss."""
+    params = list(vf.parameters())
+    for _ in range(iters):
+        loss = torch.square(vf(fobs)[1] - fret).mean()
+        # the value network's pi head takes zero gradients, as in JAX
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        ppo.adam_update(params, grads, adam, lr, eps=1e-8)
+    return loss.detach()
 
 
 def make_trpo(env_fns, *, network="cnn_small", nsteps=512, gamma=0.99,
@@ -180,9 +205,7 @@ def make_trpo(env_fns, *, network="cnn_small", nsteps=512, gamma=0.99,
                              list(vf.parameters())),
                          env_state=env_state, generator=gen)
 
-    def step_fn(obs, generator):
-        actions, _, neglogps, logits = pi_step(obs, generator)
-        return actions, vf_value(obs), neglogps, logits
+    step_fn = value_net_step(pi_step, vf_value)
 
     def collect(state: TRPOState):
         if "buf" not in storage:
@@ -203,17 +226,11 @@ def make_trpo(env_fns, *, network="cnn_small", nsteps=512, gamma=0.99,
             module, nact, fobs, facts, fadv, fnlp_old, max_kl=max_kl,
             cg_iters=cg_iters, cg_damping=cg_damping, ent_coef=ent_coef,
             line_search_steps=line_search_steps)
-        params = list(vf.parameters())
-        for _ in range(vf_iters):
-            vf_loss = torch.square(vf(fobs)[1] - fret).mean()
-            # the value network's pi head takes zero gradients, as in JAX
-            grads = torch.autograd.grad(vf_loss, params,
-                                        materialize_grads=True)
-            ppo.adam_update(params, grads, state.vf_adam, vf_stepsize,
-                            eps=1e-8)
+        vf_loss = fit_value(vf, state.vf_adam, fobs, fret, vf_iters,
+                            vf_stepsize)
         with torch.no_grad():
             entropy = pd_from_logits(nact, module(fobs)[0]).entropy().mean()
-        metrics.update(vf_loss=vf_loss.detach(), entropy=entropy,
+        metrics.update(vf_loss=vf_loss, entropy=entropy,
                        **roll_metrics)
         state.update += 1
         return state, metrics

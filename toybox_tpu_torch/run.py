@@ -1,9 +1,11 @@
 """Training CLI (port of toybox_tpu.run, the reference baselines/run.py
 surface); the ported learners are ppo (recurrent too, with
---network=lstm|cnn_lstm|cnn_lnlstm), a2c (recurrent too), acktr, deepq
-(alias dqn), acer (recurrent too) and trpo (alias trpo_mpi):
+--network=lstm|cnn_lstm|cnn_lnlstm), ppo1, a2c (recurrent too), acktr,
+deepq (alias dqn), acer (recurrent too), trpo (alias trpo_mpi) and gail
+(with behavior cloning; --load_path is its expert):
 
-    python -m toybox_tpu_torch.run --alg=ppo|a2c|acktr|deepq|acer|trpo \
+    python -m toybox_tpu_torch.run \
+        --alg=ppo|ppo1|a2c|acktr|deepq|acer|trpo|gail \
         --env=BreakoutToyboxNoFrameskip-v4 --num_timesteps=1e6 \
         [--num_envs=64] [--network=...] [--save_path=...] [--play] \
         [--device=cuda]
@@ -12,8 +14,10 @@ It maps the env id onto the batched device envs (the game name from
 <Game>ToyboxNoFrameskip-v4), resolves the per-alg defaults, passes
 --key=value extras through to learn() as python literals, and plays the
 trained policy with --play. --save_path writes the policy as flax params,
-which the JAX package's ``load_params`` reads. Other algorithms raise
-NotImplementedError naming the ROADMAP item that ports them.
+which the JAX package's ``load_params`` reads. ddpg and her need a
+continuous-action or goal env, as in JAX: --alg=ddpg raises ValueError
+naming ``toybox_tpu_torch.rl.ddpg.learn``; her is not ported yet and
+raises NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -51,10 +55,15 @@ ALG_DEFAULTS = {
     # reference acktr defaults (acktr/acktr_disc.py)
     "acktr": dict(nsteps=20, lr=0.25, ent_coef=0.01, vf_coef=0.5,
                   kfac_clip=0.001),
-    # the learners not ported yet: their network defaults (the JAX
-    # package's), which the eval heads read (regress, sample_tests)
-    "ppo1": dict(network="cnn"),
-    "gail": dict(network="cnn_small"),
+    # reference ppo1/run_atari.py pposgd defaults
+    "ppo1": dict(timesteps_per_actorbatch=256, clip_param=0.2,
+                 entcoeff=0.01, optim_epochs=4, optim_stepsize=1e-3,
+                 optim_batchsize=64, gamma=0.99, lam=0.95,
+                 schedule="linear", network="cnn"),
+    # reference gail defaults (TRPO generator; --load_path doubles as
+    # the expert model to roll transitions from)
+    "gail": dict(network="cnn_small", nsteps=32, generator="trpo",
+                 bc_epochs=0),
 }
 
 
@@ -115,7 +124,7 @@ def parse_cmdline_kwargs(args):
 
 
 #: the learners not ported yet (ROADMAP.md §1)
-MISSING_ALGS = ("ppo1", "gail", "ddpg", "her")
+MISSING_ALGS = ("her",)
 
 
 def get_learn_function(alg: str):
@@ -132,8 +141,16 @@ def get_learn_function(alg: str):
         from toybox_tpu_torch.rl.acer import learn
     elif alg in ("trpo", "trpo_mpi"):
         from toybox_tpu_torch.rl.trpo import learn
+    elif alg == "ppo1":
+        from toybox_tpu_torch.rl.ppo1 import learn
+    elif alg == "gail":
+        from toybox_tpu_torch.rl.gail import learn
+    elif alg == "ddpg":
+        raise ValueError(
+            "ddpg needs a goal/continuous-action env, not an ALE game (same "
+            "as the reference); use toybox_tpu_torch.rl.ddpg.learn directly")
     else:
-        if alg not in ("her", "ddpg"):
+        if alg != "her":
             alg_defaults(alg)             # ValueError for an unknown alg
         raise NotImplementedError(
             f"alg {alg!r}: its learner is not ported to toybox_tpu_torch "

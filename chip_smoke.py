@@ -8,9 +8,9 @@ calls: the regress (serving) path of each frame-kernel game (Breakout,
 Space Invaders, Amidar) with the game's committed PPO model, PPO training
 (``rl.ppo.learn``) over the pipeline's in-kernel warp, at the Breakout
 recipe (1024 envs, NatureCNN, nsteps 128, 4 minibatches, 4 epochs),
-every other learner (phases 18-20), and the rest of the env layer:
+every other learner (phases 18-21), the rest of the env layer:
 Gridworld, the batched env's obs modes, the state samplers, seed-state
-extraction and the gym surface.
+extraction and the gym surface, and the tools (phase 21).
 Phases, each printing one line per game with its own wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every frame kernel (csrc/*.cu) with nvcc, all at once, and
@@ -125,7 +125,7 @@ Phases, each printing one line per game with its own wall time:
      its recipe (8 envs, train_freq 2, batch 64, a prioritized dueling
      double-Q ring of 10 000; one block of 64 cycles, learning_starts
      cut to 64 so that SGD and a target sync run), acer cnn_small on
-     Breakout (16 envs x nsteps 20, 2 blocks of 4 cycles, so replay
+     Breakout (16 envs x nsteps 20, 2 blocks of 2 cycles, so replay
      runs), acer cnn_lstm on Space Invaders (one block of 2 cycles) and
      trpo on Space Invaders (16 envs x nsteps 512, one update), each
      checked as phase 18 checks its runs (the warp kernel once an agent
@@ -147,11 +147,27 @@ Phases, each printing one line per game with its own wall time:
      busy share; ``run.main --alg=ddpg`` raises JAX's ValueError. Then
      one ppo1 update, one GAIL-TRPO update with its d-step and one DDPG
      cycle on cuda against cpu from the same params, batch and draws.
+ 21. goal learners and tools (a main path of each): HER at its published
+     widths (GoalQNet 256-256, actor and critic 3 x 256) and the JAX
+     learning tests' settings: ``make_her`` (16 envs, 6 bits, 400 cycles)
+     succeeds above 0.5; ``make_her_ddpg`` with the future strategy and
+     without relabeling (16 envs, dim 2, 150 cycles each): the mean
+     success of the last 20 cycles above 0.5 and below 0.25, 0.3 apart;
+     ``her.learn`` with each backend at its defaults (125 cycles); ms a
+     cycle and the busy share of 5 more; ``run.main --alg=her`` raises
+     JAX's ValueError. Then one cycle of each on cuda against cpu from the
+     same state and draws (the params whose gradient is not float noise,
+     the first step's gradients, the losses); each action distribution's
+     neglogp, entropy, kl and mode on cuda against cpu; one PPO update
+     (cnn_small) on the image-class env on cuda against cpu; and
+     ``benchmark.main`` for Breakout (--reps 3 --steps 100 --batch-sizes
+     256,2048,8192), its JSON on a line of its own.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
 phase 13's serve chunks, ``learner_launches`` summed over the runs of
-phases 18, 19 and 20), the total time, and as the last line
+phases 18, 19 and 20; phase 21 runs no frame kernel), the total time,
+and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
 CLI's log and model) go under build/chip_smoke/ in the checkout.
@@ -219,7 +235,7 @@ PROFILE_STEPS = 5
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
 GATE_EPISODES, GATE_MAX_FRAMES = 2, 128
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
-HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 16, 16
+HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 8, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
 # the depths of phases 14 and 15 (engine, pipeline and exact steps), of
 # phase 7's profile windows, phase 12's gate, phase 13's serve chunks and
@@ -1726,7 +1742,7 @@ LEARNERS = (
 #: phase 19: the replay learners and TRPO at their recipes
 #: (docs/TRAINING.md), cut in depth: deepq one block of 64 cycles with
 #: learning_starts 64 (SGD from cycle 5; a target sync at 1 000 env
-#: steps), acer 2 blocks of 4 cycles (replay from the second),
+#: steps), acer 2 blocks of 2 cycles (replay from the second cycle),
 #: acer cnn_lstm one block of 2, trpo one update
 REPLAY_LEARNERS = (
     ("deepq", "space_invaders",
@@ -1734,8 +1750,8 @@ REPLAY_LEARNERS = (
       "--jit_cycles=64", "--log_interval=1", "--learning_starts=64"],
      64, 2, ("deepq", "conv_only"), ("loss", "mean_q", "epsilon")),
     ("acer cnn_small", "breakout",
-     ["--alg=acer", "--num_envs=16", "--cycles_per_jit=4",
-      "--log_interval=4"], 8, 20, ("acer", "cnn_small"),
+     ["--alg=acer", "--num_envs=16", "--cycles_per_jit=2",
+      "--log_interval=2"], 4, 20, ("acer", "cnn_small"),
      ("pg_loss", "q_loss", "entropy")),
     ("acer cnn_lstm", "space_invaders",
      ["--alg=acer", "--network=cnn_lstm", "--num_envs=16",
@@ -2428,6 +2444,333 @@ def imitation_update_phase() -> str:
     return "; ".join(out)
 
 
+#: phase 21: HER at the JAX learning tests' settings
+#: (tests/test_rl_learning.py:144 and :298) and learn's defaults
+HER_ENVS, HER_BITS, HER_CYCLES, HER_THRESHOLD = 16, 6, 400, 0.5
+HER_DDPG_CYCLES, HER_DDPG_LAST = 150, 20
+HER_FUTURE_MIN, HER_NONE_MAX, HER_MARGIN = 0.5, 0.25, 0.3
+HER_LEARN_EPISODES = 2000          # learn's default: 125 cycles of 16 envs
+HER_BUSY_CYCLES = 5                # cycles in each busy-share window
+# phase 21, cuda against cpu: one cycle of each learner from the same
+# state and draws (DQN one Adam step, DDPG 4 SGD steps of two). Adam at
+# eps 1e-8 turns the float-order noise of near-zero gradients into steps
+# of up to the lr (ROADMAP hazards, as GAIL's in phase 20), so the params
+# are held on the weights whose gradient exceeds HER_STRONG_GRAD of its
+# tensor's largest at every step, the first step's gradients relative to
+# their largest, and the losses relative
+HER_STRONG_GRAD, HER_PARAM_ATOL, HER_GRAD_RTOL = 1e-3, 1e-5, 1e-5
+HER_LOSS_RTOL, PD_RTOL = 1e-4, 1e-5
+BENCH_ARGS = ["--game", "breakout", "--reps", "3", "--steps", "100",
+              "--batch-sizes", "256,2048,8192"]
+
+
+class _Grads:
+    """Records the gradients of every ``ppo.adam_update`` call while in
+    use, by the id of the first parameter updated."""
+
+    def __enter__(self):
+        self.fn, self.calls = ppo.adam_update, []
+
+        def record(params, grads, *args, **kwargs):
+            self.calls.append((id(params[0]), [g.detach().cpu().clone()
+                                               for g in grads]))
+            return self.fn(params, grads, *args, **kwargs)
+
+        ppo.adam_update = record
+        return self
+
+    def __exit__(self, *exc):
+        ppo.adam_update = self.fn
+
+    def of(self, module) -> list:
+        first = id(next(module.parameters()))
+        return [g for k, g in self.calls if k == first]
+
+
+def _her_twins(label, modules: dict, grads: dict, before: dict) -> str:
+    """``modules[d]`` (name -> module) after one cycle on each device from
+    the same params ``before`` (name -> state_dict), with the gradients
+    of each Adam step (``grads[d]``, a _Grads): the first step's gradients
+    within HER_GRAD_RTOL of their largest; the params whose gradient
+    exceeds HER_STRONG_GRAD of its tensor's largest at every step moved
+    and within HER_PARAM_ATOL."""
+    out = []
+    for name, mod in modules["cpu"].items():
+        g = {d: grads[d].of(m[name]) for d, m in modules.items()}
+        check(len(g["cpu"]) == len(g[DEV]) > 0, f"{label} {name}: "
+              f"{len(g['cpu'])} and {len(g[DEV])} Adam steps")
+        g_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(g[DEV][0], g["cpu"][0]))
+        check(g_rel <= HER_GRAD_RTOL, f"{label} {name}: the first step's "
+              f"gradients differ by {g_rel} of the largest")
+        names = [n for n, _ in mod.named_parameters()]
+        moved = off = 0.0
+        n_strong = n_all = 0
+        for i, n in enumerate(names):
+            strong = torch.ones_like(g["cpu"][0][i], dtype=torch.bool)
+            for step in g["cpu"]:
+                strong &= step[i].abs() > HER_STRONG_GRAD * step[i].abs().max()
+            p = {d: m[name].state_dict()[n].cpu() for d, m in modules.items()}
+            if strong.any():
+                moved = max(moved, float((p["cpu"] - before[name][n])
+                                         .abs()[strong].max()))
+                off = max(off, float((p[DEV] - p["cpu"]).abs()[strong].max()))
+            n_strong += int(strong.sum())
+            n_all += strong.numel()
+        check(moved > 10 * HER_PARAM_ATOL, f"{label} {name}: the cycle moved "
+              f"the strong-gradient params by only {moved}")
+        check(off <= HER_PARAM_ATOL, f"{label} {name}: cuda and cpu differ "
+              f"by {off} on the strong-gradient params")
+        out.append(f"{label} {name}: first gradient cuda vs cpu {g_rel:.3g} "
+                   f"of its largest (tolerance {HER_GRAD_RTOL:g}); the "
+                   f"{n_strong} of {n_all} params with |g| > "
+                   f"{HER_STRONG_GRAD:g} of the largest at all "
+                   f"{len(g['cpu'])} steps moved {moved:.3g}, cuda vs cpu "
+                   f"{off:.3g} (tolerance {HER_PARAM_ATOL:g})")
+    return "; ".join(out)
+
+
+def _loss_check(label, metrics: dict, keys) -> str:
+    out = []
+    for k in keys:
+        a, b = float(metrics[DEV][k]), float(metrics["cpu"][k])
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        check(rel <= HER_LOSS_RTOL, f"{label} {k}: cuda {a} vs cpu {b}")
+        out.append(f"{k} {b:.6g} (cuda vs cpu {rel:.2g} relative)")
+    return f"{label} " + ", ".join(out)
+
+
+def her_learning_phase() -> str:
+    """A main path of each HER learner on the card, at the JAX learning
+    tests' settings and widths (GoalQNet 256-256, actor and critic 3 x
+    256): make_her (HER_ENVS envs, HER_BITS bits, HER_CYCLES cycles)
+    succeeds above HER_THRESHOLD; make_her_ddpg with the future strategy
+    and without relabeling (HER_DDPG_CYCLES cycles each): the mean success
+    of the last HER_DDPG_LAST cycles above HER_FUTURE_MIN and below
+    HER_NONE_MAX, HER_MARGIN apart; then ``her.learn`` with each backend
+    at its defaults; ms a cycle and the busy share of HER_BUSY_CYCLES
+    more cycles;
+    ``run.main --alg=her`` raises JAX's ValueError."""
+    from toybox_tpu_torch.rl import her
+
+    out = []
+    init_fn, cycle, _ = her.make_her(HER_ENVS, HER_BITS, device=DEV)
+    state = init_fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HER_CYCLES):
+        state, last = cycle(state)
+    success = float(last["success_rate"])
+    secs = time.perf_counter() - t0
+    check(success > HER_THRESHOLD, f"her bit-flip success {success}")
+    check(math.isfinite(float(last["loss"])), "her loss not finite")
+    busy = _busy(lambda: [cycle(state) for _ in range(HER_BUSY_CYCLES)],
+                 f"{HER_BUSY_CYCLES} cycles")
+    out.append(f"her (goal DQN) bit-flip {HER_ENVS} envs x {HER_BITS} bits, "
+               f"{HER_CYCLES} cycles in {secs:.2f} s ({1e3 * secs / HER_CYCLES:.2f} "
+               f"ms a cycle): success {success:.3f} (> {HER_THRESHOLD}); "
+               f"{busy}")
+    final = {}
+    for strategy in ("future", "none"):
+        init_fn, cycle = her.make_her_ddpg(HER_ENVS, 2,
+                                           replay_strategy=strategy,
+                                           device=DEV)
+        state = init_fn(0)
+        succ = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HER_DDPG_CYCLES):
+            state, m = cycle(state)
+            succ.append(m["success_rate"])
+        final[strategy] = float(torch.stack(succ[-HER_DDPG_LAST:]).mean())
+        secs = time.perf_counter() - t0
+        for k in ("critic_loss", "actor_loss"):
+            check(math.isfinite(float(m[k])), f"her-ddpg {k} not finite")
+        busy = ""
+        if strategy == "future":
+            busy = "; " + _busy(
+                lambda: [cycle(state) for _ in range(HER_BUSY_CYCLES)],
+                f"{HER_BUSY_CYCLES} cycles")
+        out.append(f"her-ddpg {strategy} {HER_ENVS} envs, dim 2, "
+                   f"{HER_DDPG_CYCLES} cycles in {secs:.2f} s "
+                   f"({1e3 * secs / HER_DDPG_CYCLES:.2f} ms a cycle): mean "
+                   f"success of the last {HER_DDPG_LAST} "
+                   f"{final[strategy]:.3f}{busy}")
+    check(final["future"] > HER_FUTURE_MIN, f"her-ddpg future {final}")
+    check(final["none"] < HER_NONE_MAX, f"her-ddpg none {final}")
+    check(final["future"] > final["none"] + HER_MARGIN, f"her-ddpg {final}")
+    for backend in ("dqn", "ddpg"):
+        log = _Rows()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = her.learn(backend=backend, total_episodes=HER_LEARN_EPISODES,
+                          logger=log, device=DEV)
+        secs = time.perf_counter() - t0
+        n = HER_LEARN_EPISODES // HER_ENVS
+        check(state.t == n and len(log.rows) == 1,
+              f"her.learn {backend}: {state.t} cycles, {len(log.rows)} rows")
+        row = log.rows[0]
+        check(all(math.isfinite(v) for k, v in row.items() if k != "wall"),
+              f"her.learn {backend}: {row}")
+        out.append(f"her.learn {backend} at its defaults: {n} cycles in "
+                   f"{secs:.2f} s, success {row['success_rate']:.3f}")
+    try:
+        run.main(["--alg=her", f"--device={DEV}"])
+    except ValueError as e:
+        check("toybox_tpu_torch.rl.her.learn" in str(e), f"her CLI: {e}")
+    else:
+        check(False, "run.main --alg=her did not raise")
+    out.append("run.main --alg=her raises JAX's ValueError")
+    return "; ".join(out)
+
+
+def her_update_phase() -> str:
+    """One cycle of each HER learner on cuda and on cpu from the same
+    state (the init's params, an empty ring) and the same draws, made on
+    the cpu at the phase's widths: checked by ``_her_twins``, and the
+    cycle's losses within HER_LOSS_RTOL."""
+    from toybox_tpu_torch.rl import her
+
+    gen = torch.Generator().manual_seed(0)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def samples(shape, size, T):
+        tt = torch.randint(0, T, shape, generator=gen)
+        return {"ep": torch.randint(0, size, shape, generator=gen), "tt": tt,
+                "en": torch.randint(0, HER_ENVS, shape, generator=gen),
+                "fut_off": her.future_offsets(tt, u(*shape), T),
+                "her_u": u(*shape)}
+
+    out = []
+    T, B = HER_BITS, 128
+    draws = {"bits": u(HER_ENVS, T) < .5, "goal": u(HER_ENVS, T) < .5,
+             "explore_u": u(T, HER_ENVS),
+             "rand_actions": torch.randint(0, T, (T, HER_ENVS), generator=gen),
+             **samples((B,), 1, T)}
+    mods, grads, metrics = {}, {}, {}
+    for d in ("cpu", DEV):
+        init_fn, cycle, _ = her.make_her(HER_ENVS, T, device=d)
+        state = init_fn(0)
+        if d == "cpu":
+            before = {"qnet": copy.deepcopy(state.qnet.state_dict())}
+        with _Grads() as grads[d]:
+            _, metrics[d] = cycle(state, {k: v.to(d) for k, v in
+                                          draws.items()})
+        mods[d] = {"qnet": state.qnet}
+    out.append(_her_twins("her", mods, grads, before))
+    out.append(_loss_check("her", metrics, ("loss", "success_rate")))
+
+    T, B, nb = 20, 256, 4
+    draws = {"pos": u(HER_ENVS, 2) * 2 - 1, "goal": u(HER_ENVS, 2) * 2 - 1,
+             "noise": torch.randn((T, HER_ENVS, 2), generator=gen),
+             "rand_coin": u(T, HER_ENVS, 1), "rand_u": u(T, HER_ENVS, 2) * 2 - 1,
+             **samples((nb, B), 1, T)}
+    mods, grads, metrics = {}, {}, {}
+    for d in ("cpu", DEV):
+        init_fn, cycle = her.make_her_ddpg(HER_ENVS, 2, device=d)
+        state = init_fn(0)
+        if d == "cpu":
+            before = {w: copy.deepcopy(getattr(state, w).state_dict())
+                      for w in ("actor", "critic")}
+        with _Grads() as grads[d]:
+            _, metrics[d] = cycle(state, {k: v.to(d) for k, v in
+                                          draws.items()})
+        mods[d] = {w: getattr(state, w) for w in ("actor", "critic")}
+    out.append(_her_twins("her-ddpg", mods, grads, before))
+    out.append(_loss_check("her-ddpg", metrics, ("critic_loss", "actor_loss",
+                                                 "success_rate")))
+    return "; ".join(out)
+
+
+def distributions_phase() -> str:
+    """Each action distribution's neglogp, entropy, kl and mode on cuda
+    against cpu on the same parameters (a cpu generator): within PD_RTOL of
+    the largest, modes equal."""
+    from toybox_tpu_torch.rl import distributions as pds
+
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen) * 2
+
+    n, ncats = 1024, (3, 5, 2)
+    cases = {
+        "categorical": (lambda p: pds.CategoricalPd(p[0]),
+                        [r(n, 6), r(n, 6)], torch.randint(0, 6, (n,),
+                                                          generator=gen)),
+        "multi_categorical": (lambda p: pds.MultiCategoricalPd(p[0], ncats),
+                              [r(n, 10), r(n, 10)],
+                              torch.stack([torch.randint(0, k, (n,),
+                                                         generator=gen)
+                                           for k in ncats], -1)),
+        "diag_gaussian": (lambda p: pds.DiagGaussianPd(p[0], p[1] * 0.3),
+                          [r(n, 4), r(n, 4), r(n, 4), r(n, 4)], r(n, 4)),
+        "bernoulli": (lambda p: pds.BernoulliPd(p[0]), [r(n, 8), r(n, 8)],
+                      torch.randint(0, 2, (n, 8), generator=gen)),
+    }
+    worst = 0.0
+    for name, (make, params, x) in cases.items():
+        res = {}
+        for d in ("cpu", DEV):
+            p = [t.to(d) for t in params]
+            half = len(p) // 2
+            a, b = make(p[:half]), make(p[half:])
+            res[d] = {"neglogp": a.neglogp(x.to(d)), "entropy": a.entropy(),
+                      "kl": a.kl(b), "mode": a.mode()}
+        check(torch.equal(res[DEV]["mode"].cpu(), res["cpu"]["mode"]),
+              f"{name}: modes differ")
+        for k in ("neglogp", "entropy", "kl"):
+            want = res["cpu"][k]
+            rel = float((res[DEV][k].cpu() - want).abs().max()
+                        / want.abs().max())
+            check(rel <= PD_RTOL, f"{name} {k}: cuda vs cpu {rel}")
+            worst = max(worst, rel)
+    return (f"{', '.join(cases)} at {n} rows: neglogp, entropy, kl within "
+            f"{worst:.3g} of the largest cuda vs cpu (tolerance {PD_RTOL:g}),"
+            " modes equal")
+
+
+def image_class_update_phase() -> str:
+    """One PPO update (cnn_small) on the image-class env on cuda and on
+    cpu from the same params, batch and permutations, as phase 9's."""
+    from toybox_tpu_torch.rl.test_envs import make_image_class_env
+
+    n, nsteps = 16, 8
+    env = make_image_class_env(n, n_classes=4, episode_len=4, device="cpu")
+    init_fn, train_step, _ = ppo.make_ppo(
+        env, network="cnn_small", nsteps=nsteps, nminibatches=2,
+        noptepochs=2, lr=1e-3, cliprange=0.2, gamma=0.1, device="cpu")
+    state = init_fn(0)
+    before = {k: v.clone() for k, v in state.module.state_dict().items()}
+    batch, _ = train_step.collect(state)
+    module = copy.deepcopy(state.module).to(DEV)
+    perms = [torch.randperm(n * nsteps, generator=state.generator)
+             for _ in range(2)]
+    hp = ppo.Hyper(nminibatches=2)
+    for d, m in ((DEV, module), ("cpu", state.module)):
+        ppo.update(m, ppo.AdamState.zeros_like(list(m.parameters())),
+                   tuple(x.to(d) for x in batch), [p.to(d) for p in perms],
+                   1e-3, 0.2, hp, env.num_actions)
+    return "image-class ppo (cnn_small, 16 envs x 8 steps, 2 x 2): " + \
+        _check_moved("params", {DEV: module, "cpu": state.module}, before,
+                     UPDATE_ATOL)
+
+
+def benchmark_phase() -> str:
+    """``toybox_tpu_torch.benchmark.main`` for Breakout on the card: its
+    JSON on a line of its own, every rate positive."""
+    from toybox_tpu_torch import benchmark
+
+    result = benchmark.main(BENCH_ARGS + ["--device", DEV])
+    rates = {k: v["mean"] for k, v in result.items() if isinstance(v, dict)}
+    check(rates and all(v > 0 for v in rates.values()),
+          f"benchmark rates {rates}")
+    return "benchmark.main " + " ".join(BENCH_ARGS) + ": " + ", ".join(
+        f"{k} {v:.0f}" for k, v in rates.items())
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2620,6 +2963,19 @@ def main() -> int:
     phase(20, "imitation", t0, ddpg_run())
     t0 = time.perf_counter()
     phase(20, "imitation", t0, imitation_update_phase())
+
+    # 21. the goal learners (HER) and the tools: distributions, the
+    # image-class env, the bench harness
+    t21 = time.perf_counter()
+    phase(21, "goal learners", t21, her_learning_phase())
+    t0 = time.perf_counter()
+    phase(21, "goal learners", t0, her_update_phase())
+    t0 = time.perf_counter()
+    phase(21, "tools", t0, distributions_phase() + "; "
+          + image_class_update_phase())
+    t0 = time.perf_counter()
+    phase(21, "tools", t0, benchmark_phase())
+    phase(21, "goal learners and tools", t21, "the whole phase")
 
     kernels = []
     for g in GAMES:

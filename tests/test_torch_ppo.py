@@ -338,7 +338,11 @@ def test_run_main_refuses_other_algs_and_plays(tmp_path, monkeypatch,
                                                capsys):
     with pytest.raises(ValueError, match="unknown alg"):
         run.main(_tiny_cli(tmp_path, "--alg=nope"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with monkeypatch.context() as m:       # a feature not ported yet
+        m.setenv("TOYBOX_LOG_FORMAT", "tensorboard")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run.main(_tiny_cli(tmp_path))
+    with pytest.raises(ValueError, match="toybox_tpu_torch.rl.her.learn"):
         run.main(_tiny_cli(tmp_path, "--alg=her"))
     with pytest.raises(ValueError, match="toybox_tpu_torch.rl.ddpg.learn"):
         run.main(_tiny_cli(tmp_path, "--alg=ddpg"))

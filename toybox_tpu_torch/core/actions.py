@@ -1,6 +1,6 @@
-"""ALE 18-action set and action -> Input decoding (port of
-toybox_tpu.core.actions: ``ale_to_input``, the legal action table and the
-action names)."""
+"""ALE 18-action set and action <-> Input decoding (port of
+toybox_tpu.core.actions: ``ale_to_input``, its host-side inverse
+``input_to_ale``, the legal action table and the action names)."""
 
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ UPFIRE_STR = "UPFIRE"
 RIGHTFIRE_STR = "RIGHTFIRE"
 LEFTFIRE_STR = "LEFTFIRE"
 DOWNFIRE_STR = "DOWNFIRE"
+BUTTON1_STR = "BUTTON1"
 
 
 def _build_table() -> np.ndarray:
@@ -74,3 +75,12 @@ def ale_to_input(action: torch.Tensor) -> Input:
     return Input(left=row[..., 0], right=row[..., 1], up=row[..., 2],
                  down=row[..., 3], button1=row[..., 4],
                  button2=torch.zeros_like(row[..., 4]))
+
+
+def input_to_ale(inp: Input) -> int:
+    """Host-side inverse: the first ALE action whose buttons match a
+    concrete Input (button2 is not read), else 0 (NOOP)."""
+    row = np.array([bool(inp.left), bool(inp.right), bool(inp.up),
+                    bool(inp.down), bool(inp.button1), False])
+    idx = np.nonzero(np.all(ACTION_TABLE == row, axis=1))[0]
+    return int(idx[0]) if len(idx) else 0

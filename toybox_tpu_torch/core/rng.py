@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["MASK32", "mul32", "seed", "next_u32", "uniform", "randint",
-           "to_u64_pair", "from_u64_pair"]
+           "bernoulli", "to_u64_pair", "from_u64_pair"]
 
 MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -72,6 +72,13 @@ def randint(state: torch.Tensor, n: int):
     """Draw int32 in [0, n)."""
     state, bits = next_u32(state)
     return state, (bits % n).to(torch.int32)
+
+
+def bernoulli(state: torch.Tensor, p):
+    """Draw bool u < p. One u32 consumed."""
+    state, u = uniform(state)
+    return state, u < torch.as_tensor(p, dtype=torch.float32,
+                                      device=u.device)
 
 
 def to_u64_pair(state) -> list:

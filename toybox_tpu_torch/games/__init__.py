@@ -14,3 +14,8 @@ def get_game(name: str):
     except KeyError:
         raise ValueError(f"unknown game {name!r}; have "
                          f"{sorted(GAMES)}") from None
+
+
+def register_game(name: str, module) -> None:
+    """Add (or replace) a game engine module under ``name``."""
+    GAMES[name] = module

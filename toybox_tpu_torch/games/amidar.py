@@ -463,6 +463,18 @@ def default_config(device="cuda") -> Config:
 # as jnp's do)
 # ---------------------------------------------------------------------------
 
+def tile_to_world(tp) -> torch.Tensor:
+    """Tile coordinates int[..., 2] -> world coordinates (x, y)."""
+    tp = torch.as_tensor(tp, dtype=I32)
+    return torch.stack([tp[..., 0] * WORLD_TX, tp[..., 1] * WORLD_TY], -1)
+
+
+def world_to_tile(wp) -> torch.Tensor:
+    """World coordinates int[..., 2] -> the nearest tile (x, y)."""
+    wp = torch.as_tensor(wp, dtype=I32)
+    return torch.stack([_tx_of(wp[..., 0]), _ty_of(wp[..., 1])], -1)
+
+
 def _tx_of(x):
     return (x + WORLD_TX // 2) // WORLD_TX
 

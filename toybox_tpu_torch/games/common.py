@@ -1,7 +1,7 @@
-"""Shared raster helpers for game engines (port of the part of
-toybox_tpu.games.common that the renderers need), and packed-RGBA colors:
-u32 ``r | g << 8 | b << 16 | a << 24`` held in python ints or int64
-tensors."""
+"""Shared raster helpers for game engines (port of
+toybox_tpu.games.common: masks, painting, grey conversion), and
+packed-RGBA colors: u32 ``r | g << 8 | b << 16 | a << 24`` held in python
+ints or int64 tensors."""
 
 from __future__ import annotations
 
@@ -29,6 +29,40 @@ def rect_mask(h: int, w: int, x0, y0, x1, y1, device=None) -> torch.Tensor:
         return v[..., None, None] if torch.is_tensor(v) else v
 
     return (xs >= b(x0)) & (xs < b(x1)) & (ys >= b(y0)) & (ys < b(y1))
+
+
+def paint(img: torch.Tensor, mask: torch.Tensor, color) -> torch.Tensor:
+    """Overwrite masked pixels with an RGBA color. img u8[H, W, 4]."""
+    color = torch.as_tensor(color, dtype=U8, device=img.device)
+    return torch.where(mask[..., None], color, img)
+
+
+def paint_rects(img: torch.Tensor, xywh, colors, alive) -> torch.Tensor:
+    """Rasterize N axis-aligned rects (top-left x, y and w, h as floats)
+    in order, later rects over earlier ones; rect i only where alive[i]."""
+    h, w = img.shape[:2]
+    dev = img.device
+    xywh = torch.as_tensor(xywh, dtype=F32, device=dev)
+    colors = torch.as_tensor(colors, dtype=U8, device=dev)
+    alive = torch.as_tensor(alive, dtype=torch.bool, device=dev)
+    for box, color, ok in zip(xywh, colors, alive):
+        m = rect_mask(h, w, box[0], box[1], box[0] + box[2],
+                      box[1] + box[3], device=dev) & ok
+        img = paint(img, m, color)
+    return img
+
+
+def circle_mask(h: int, w: int, cx, cy, r, device=None) -> torch.Tensor:
+    """Boolean [h, w] mask of the pixels whose centres lie within r of
+    (cx, cy)."""
+    ys = torch.arange(h, dtype=F32, device=device)[:, None] + 0.5
+    xs = torch.arange(w, dtype=F32, device=device)[None, :] + 0.5
+    return (xs - cx) ** 2 + (ys - cy) ** 2 <= r * r
+
+
+def to_grayscale(rgba: torch.Tensor) -> torch.Tensor:
+    """RGBA u8 [..., H, W, 4] -> grayscale u8 [..., H, W, 1]."""
+    return luma2d(rgba)[..., None]
 
 
 def luma(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

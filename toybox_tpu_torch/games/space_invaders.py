@@ -43,6 +43,7 @@ ENEMY_W, ENEMY_H = 16, 10            # collision box
 SHIP_Y = 185
 SHIP_W, SHIP_H = 16, 10
 SHIELD_W, SHIELD_H = 16, 18
+N_SHIELDS = 3                        # shields in the default config
 MAX_ENEMY_LASERS = 4
 
 SHIP_LASER_SPEED = 6

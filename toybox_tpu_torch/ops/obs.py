@@ -1,5 +1,8 @@
-"""Observation pipeline ops (port of toybox_tpu.ops.obs ``clip_reward`` and
-of the bilinear warp in toybox_tpu/ops/render_pallas.py).
+"""Observation pipeline ops (port of toybox_tpu.ops.obs: ``warp_frame``,
+``warp_frame2d``, ``max_pool_pair``, ``clip_reward``, ``push_frame_stack``
+and ``reset_frame_stack``, batched tensor transforms of uint8
+[..., H, W, C] frames; and of the bilinear warp in
+toybox_tpu/ops/render_pallas.py).
 
 The out-of-kernel warp (``make_warp``) was an XLA matmul in the JAX package
 and is a plain ``torch.matmul`` here. The in-kernel warp of the fused frame
@@ -46,6 +49,46 @@ def make_warp(h: int, w: int, size: int = OBS_SIZE, device="cuda"):
         return out.round().clamp(0, 255).to(torch.uint8)
 
     return warp
+
+
+def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
+    """f32 [..., H, W] -> u8 [..., size, size]: Wy @ x @ Wx^T with the
+    ``bilinear_matrix`` weights, rounded half to even and clipped."""
+    h, w = x.shape[-2:]
+    wy = torch.as_tensor(bilinear_matrix(size, h), device=x.device)
+    wxt = torch.as_tensor(bilinear_matrix(size, w).T.copy(), device=x.device)
+    out = torch.matmul(torch.matmul(wy, x), wxt)
+    return out.round().clamp(0, 255).to(torch.uint8)
+
+
+def warp_frame(obs: torch.Tensor, size: int = OBS_SIZE) -> torch.Tensor:
+    """Resize uint8 [..., H, W, C] to [..., size, size, C] (bilinear, as
+    jax.image.resize: antialiased when shrinking). The engines render
+    grey frames already, so there is no RGB-to-grey step."""
+    x = obs.to(torch.float32).movedim(-1, -3)
+    return _resize(x, size).movedim(-3, -1)
+
+
+def warp_frame2d(obs: torch.Tensor, size: int = OBS_SIZE) -> torch.Tensor:
+    """Channel-free warp: uint8 [..., H, W] -> [..., size, size]."""
+    return _resize(obs.to(torch.float32), size)
+
+
+def max_pool_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Max over the last two skipped frames (MaxAndSkipEnv)."""
+    return torch.maximum(a, b)
+
+
+def push_frame_stack(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """FrameStack: stack [..., H, W, C*k]; frame [..., H, W, C] appended
+    last, the oldest C channels dropped."""
+    c = frame.shape[-1]
+    return torch.cat([stack[..., c:], frame], dim=-1)
+
+
+def reset_frame_stack(frame: torch.Tensor, k: int) -> torch.Tensor:
+    """On reset the stack is the first frame repeated k times."""
+    return torch.cat([frame] * k, dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -155,6 +155,10 @@ class A2CState:
             self.prev_done = d["prev_done"].to(dev)
 
 
+#: the recurrent form keeps its carry in the same class
+RecurrentA2CState = A2CState
+
+
 def _init(module, p_init, env_fns, dev, recurrent: bool):
     def init_fn(seed: int = 0) -> A2CState:
         p_init(seed)

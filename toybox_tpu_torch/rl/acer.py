@@ -340,7 +340,7 @@ def make_acer(env_fns, *, network="cnn_small", nsteps=20, lr=7e-4,
               device="cuda"):
     """Build (init_fn, cycle) over a batched env whose tensors lie on
     ``device``; a recurrent ``network`` (lstm, cnn_lstm, cnn_lnlstm) makes
-    the recurrent form (JAX's ``make_recurrent_acer``).
+    the recurrent form, which ``make_recurrent_acer`` names.
 
     - init_fn(seed) -> ACERState: the policy initialised as flax does, the
       average a copy, zero RMS moments, an empty ring of ``buffer_traj``
@@ -446,6 +446,20 @@ def make_acer(env_fns, *, network="cnn_small", nsteps=20, lr=7e-4,
         return state, metrics
 
     return init_fn, ppo.TrainStep(collect, optimize)
+
+
+#: the recurrent form keeps its carry and masks in the same classes
+RecurrentACERState = ACERState
+RecurrentTrajReplay = TrajReplay
+
+
+def make_recurrent_acer(env_fns, *, network="cnn_lstm", **kwargs):
+    """``make_acer`` over a recurrent ``network`` (lstm, cnn_lstm,
+    cnn_lnlstm): (init_fn, cycle), the state a RecurrentACERState."""
+    if network not in RECURRENT_NETWORKS:
+        raise ValueError(f"{network!r} is not recurrent; have "
+                         f"{RECURRENT_NETWORKS}")
+    return make_acer(env_fns, network=network, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -212,33 +212,67 @@ class LSTMTrunk(nn.Module):
         return torch.stack(outs), carry
 
 
-def _image(cls):
-    def build(obs_shape, **kwargs):
-        h, w, c = obs_shape
-        return cls(c, h, w, **kwargs)
-    return build
+class CNNLSTMCarry:
+    """Marker: recurrent trunks return (latent, new_carry)."""
 
 
-def _mlp(obs_shape, **kwargs):
+#: name -> factory(obs_shape, **network_kwargs) -> trunk module
+NETWORKS: dict = {}
+
+
+def register(name: str):
+    """Decorator: add a trunk factory to the registry under ``name``."""
+    def deco(fn):
+        NETWORKS[name] = fn
+        return fn
+    return deco
+
+
+def _hwc(obs_shape):
+    h, w, c = obs_shape
+    return c, h, w
+
+
+@register("cnn")
+def cnn(obs_shape, **kwargs):
+    return NatureCNN(*_hwc(obs_shape), **kwargs)
+
+
+@register("nature_cnn")
+def nature_cnn(obs_shape, **kwargs):
+    return NatureCNN(*_hwc(obs_shape), **kwargs)
+
+
+@register("cnn_small")
+def cnn_small(obs_shape, **kwargs):
+    return SmallCNN(*_hwc(obs_shape), **kwargs)
+
+
+@register("conv_only")
+def conv_only(obs_shape, **kwargs):
+    return ConvOnly(*_hwc(obs_shape), **kwargs)
+
+
+@register("mlp")
+def mlp(obs_shape, **kwargs):
     return MLP(math.prod(obs_shape), **kwargs)
 
 
-def _lstm(base, layer_norm=False):
-    def build(obs_shape, nlstm: int = 128, **kwargs):
-        return LSTMTrunk(base(obs_shape, **kwargs), nlstm, layer_norm)
-    return build
+@register("cnn_lstm")
+def cnn_lstm(obs_shape, nlstm: int = 128, **kwargs):
+    return LSTMTrunk(cnn(obs_shape, **kwargs), nlstm)
 
 
-NETWORKS = {
-    "cnn": _image(NatureCNN),
-    "nature_cnn": _image(NatureCNN),
-    "cnn_small": _image(SmallCNN),
-    "conv_only": _image(ConvOnly),
-    "mlp": _mlp,
-    "cnn_lstm": _lstm(_image(NatureCNN)),
-    "cnn_lnlstm": _lstm(_image(NatureCNN), layer_norm=True),
-    "lstm": _lstm(_mlp),
-}
+@register("cnn_lnlstm")
+def cnn_lnlstm(obs_shape, nlstm: int = 128, **kwargs):
+    return LSTMTrunk(cnn(obs_shape, **kwargs), nlstm, layer_norm=True)
+
+
+@register("lstm")
+def lstm(obs_shape, nlstm: int = 128, **kwargs):
+    return LSTMTrunk(mlp(obs_shape, **kwargs), nlstm)
+
+
 RECURRENT_NETWORKS = ("lstm", "cnn_lstm", "cnn_lnlstm")
 
 
@@ -251,6 +285,12 @@ def network_factory(name: str):
         raise ValueError(
             f"unknown network {name!r}; the port has {sorted(NETWORKS)} "
             "(cnn_im2col and cnn_coutpad are not ported yet)") from None
+
+
+def get_network_builder(name):
+    """The reference's name for ``network_factory``; a callable passes
+    through as the factory itself."""
+    return name if callable(name) else network_factory(name)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,

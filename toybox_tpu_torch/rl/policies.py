@@ -9,13 +9,14 @@ import torch
 from torch import nn
 
 from toybox_tpu_torch.rl.distributions import (CategoricalPd, gumbel,
-                                               gumbel_max, make_pdtype)
+                                               gumbel_max, make_pdtype,
+                                               pd_from_logits)
 from toybox_tpu_torch.rl.models import NETWORKS, RECURRENT_NETWORKS, \
     init_trunk, network_factory
 
 __all__ = ["NETWORKS", "RECURRENT_NETWORKS", "EVAL_ALGS", "PolicyWithValue",
            "noise_step", "build_policy", "build_eval_policy", "build_recurrent_eval_policy",
-           "build_eval_head"]
+           "build_eval_head", "pd_from_logits"]
 
 #: the algorithms whose checkpoints an eval head loads (aliases included)
 EVAL_ALGS = ("ppo", "ppo2", "ppo1", "a2c", "trpo", "trpo_mpi", "gail",
@@ -84,12 +85,13 @@ def build_policy(obs_shape, action_space, network: str = "cnn",
       a CPU generator seeded with ``seed`` so that every device gets the
       same parameters, and returns the module;
     - step_fn(obs, generator) -> (actions, values, neglogps, logits),
-      ``noise_step(module)``: without gradients, actions drawn from the
-      categorical policy with noise from ``generator`` (on the module's
-      device);
+      without gradients: for a discrete space ``noise_step(module)``,
+      actions drawn from the categorical policy with noise from
+      ``generator`` (on the module's device); for any other space
+      ``make_pdtype`` takes, drawn by its distribution's ``sample``;
     - value_fn(obs) -> values, without gradients.
     """
-    n_pdparams, _ = make_pdtype(action_space)
+    n_pdparams, make_pd = make_pdtype(action_space)
     trunk = network_factory(network)(tuple(obs_shape), **network_kwargs)
     module = PolicyWithValue(trunk, n_pdparams).to(device)
 
@@ -107,7 +109,15 @@ def build_policy(obs_shape, action_space, network: str = "cnn",
     def value_fn(obs: torch.Tensor) -> torch.Tensor:
         return module(obs)[1]
 
-    return module, init_fn, noise_step(module), value_fn
+    @torch.no_grad()
+    def pd_step(obs: torch.Tensor, generator: torch.Generator):
+        logits, values = module(obs)
+        pd = make_pd(logits)
+        actions = pd.sample(generator)
+        return actions, values, pd.neglogp(actions), logits
+
+    step_fn = noise_step(module) if make_pd is CategoricalPd else pd_step
+    return module, init_fn, step_fn, value_fn
 
 
 def _check_alg(alg: str) -> None:

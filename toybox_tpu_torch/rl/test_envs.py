@@ -1,15 +1,15 @@
 """Fake-env fixtures for learning tests (port of toybox_tpu.rl.test_envs
-``make_discrete_identity_env``, ``make_box_identity_env`` and
-``make_fixed_sequence_env``, the reference's DiscreteIdentityEnv,
-BoxIdentityEnv and FixedSequenceEnv): tiny seeded tasks whose optimal
-return is known.
+``make_discrete_identity_env``, ``make_box_identity_env``,
+``make_fixed_sequence_env`` and ``make_image_class_env``, the reference's
+DiscreteIdentityEnv, BoxIdentityEnv, FixedSequenceEnv and MnistEnv): tiny
+seeded tasks whose optimal return is known.
 
 Each follows the BatchedEnvFns protocol (reset/step over a state whose
 ``frames`` field is the observation). Their draws come from
-``torch.Generator``s (the identity envs' held in the state and advanced
-in place), so the numbers differ from the JAX fixtures'; the tasks are
-the same. The box env also takes its targets as a tensor, so that a test
-can feed it the JAX env's.
+``torch.Generator``s (held in the state and advanced in place), so the
+numbers differ from the JAX fixtures'; the tasks are the same. The box
+env also takes its targets as a tensor, and the image-class env its
+templates and per-step draws, so that a test can feed them the JAX env's.
 """
 
 from __future__ import annotations
@@ -183,3 +183,88 @@ def make_fixed_sequence_env(num_envs: int, n_actions: int = 10,
                          obs_mode="vector", reset=reset, step=step,
                          obs_shape=(1,), num_actions=n_actions,
                          legal_actions=tuple(range(n_actions)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageClassState:
+    frames: torch.Tensor          # u8[N, H, W, 1] the current class image
+    target: torch.Tensor          # int64[N] the correct class (action)
+    t: torch.Tensor               # i32[N] steps into the episode
+    ret: torch.Tensor             # f32[N] the episode's reward so far
+    generator: torch.Generator    # draws classes and noise (in place)
+    drawn: int = 0                # images drawn so far, the reset's too
+
+
+def make_image_class_env(num_envs: int, n_classes: int = 10, size: int = 28,
+                         episode_len: int = 10, noise: float = 0.05,
+                         seed: int = 0, device="cuda", templates=None,
+                         targets=None, flips=None) -> BatchedEnvFns:
+    """Image classification as RL (the reference's MnistEnv without the
+    download): each class is a fixed random binary template, u8[size,
+    size, 1] of 0 or 255 drawn from a CPU generator seeded with ``seed``
+    unless ``templates`` [n_classes, size, size, 1] is given; every step
+    shows each env a fresh class image with each pixel flipped (255 - v)
+    with probability ``noise``, and the reward is 1 when the action names
+    the class of the image the env showed. Only a policy that reads the
+    image beats 1 / n_classes.
+
+    ``targets`` int[k, N] and ``flips`` bool[k, N, size, size, 1], when
+    given, replace the draws: the reset's image is row 0, step t's next
+    image row t + 1."""
+    dev = torch.device(device)
+    if templates is None:
+        gen = torch.Generator().manual_seed(seed)
+        templates = (torch.rand((n_classes, size, size, 1), generator=gen)
+                     < 0.5).to(torch.uint8) * 255
+    templates = torch.as_tensor(templates, dtype=torch.uint8, device=dev)
+
+    def _new(gen, drawn):
+        if targets is not None:
+            target = torch.as_tensor(targets[drawn], device=dev).long()
+            flip = torch.as_tensor(flips[drawn], device=dev)
+        else:
+            target = torch.randint(0, n_classes, (num_envs,), generator=gen,
+                                   device=dev)
+            flip = torch.rand((num_envs, size, size, 1), generator=gen,
+                              device=dev) < noise
+        img = templates[target]
+        return target, torch.where(flip, 255 - img, img)
+
+    def reset(seeds):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(torch.as_tensor(seeds).sum()))
+        target, frames = _new(gen, 0)
+        st = ImageClassState(
+            frames=frames, target=target,
+            t=torch.zeros(num_envs, dtype=I32, device=dev),
+            ret=torch.zeros(num_envs, dtype=F32, device=dev),
+            generator=gen, drawn=1)
+        return st, frames
+
+    def step(state: ImageClassState, actions):
+        reward = (torch.as_tensor(actions, device=dev).long()
+                  == state.target).to(F32)
+        t = state.t + 1
+        ret = state.ret + reward
+        done = t >= episode_len
+        target, frames = _new(state.generator, state.drawn)
+        zero = torch.zeros((), device=dev)
+        st = ImageClassState(frames=frames, target=target,
+                             t=torch.where(done, torch.zeros_like(t), t),
+                             ret=torch.where(done, zero, ret),
+                             generator=state.generator,
+                             drawn=state.drawn + 1)
+        nan = torch.full((), float("nan"), device=dev)
+        info = {"lives": torch.ones(num_envs, dtype=I32, device=dev),
+                "score": torch.zeros(num_envs, dtype=I32, device=dev),
+                "episode_return": torch.where(done, ret, nan),
+                "episode_length": torch.where(
+                    done, torch.full_like(t, episode_len),
+                    torch.zeros_like(t)),
+                "raw_reward": reward}
+        return st, frames, reward, done, info
+
+    return BatchedEnvFns(game_name="image_class", num_envs=num_envs,
+                         obs_mode="grayscale", reset=reset, step=step,
+                         obs_shape=(size, size, 1), num_actions=n_classes,
+                         legal_actions=tuple(range(n_classes)))

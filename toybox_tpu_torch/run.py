@@ -15,9 +15,9 @@ It maps the env id onto the batched device envs (the game name from
 --key=value extras through to learn() as python literals, and plays the
 trained policy with --play. --save_path writes the policy as flax params,
 which the JAX package's ``load_params`` reads. ddpg and her need a
-continuous-action or goal env, as in JAX: --alg=ddpg raises ValueError
-naming ``toybox_tpu_torch.rl.ddpg.learn``; her is not ported yet and
-raises NotImplementedError naming the ROADMAP item that ports it.
+continuous-action or goal env, as in JAX: --alg=ddpg and --alg=her raise
+ValueError naming ``toybox_tpu_torch.rl.ddpg.learn`` and
+``toybox_tpu_torch.rl.her.learn``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import ast
 
 import torch
 
-from toybox_tpu_torch.regress import env_id_to_game, full_f32
+from toybox_tpu_torch.regress import GAME_IDS, env_id_to_game, full_f32  # noqa: F401
 
 ALG_DEFAULTS = {
     # reference ppo2/defaults.py:13-20
@@ -123,10 +123,6 @@ def parse_cmdline_kwargs(args):
     return out
 
 
-#: the learners not ported yet (ROADMAP.md §1)
-MISSING_ALGS = ("her",)
-
-
 def get_learn_function(alg: str):
     """(learn, default kwargs) of an algorithm."""
     if alg in ("ppo", "ppo2"):
@@ -145,17 +141,13 @@ def get_learn_function(alg: str):
         from toybox_tpu_torch.rl.ppo1 import learn
     elif alg == "gail":
         from toybox_tpu_torch.rl.gail import learn
-    elif alg == "ddpg":
+    elif alg in ("her", "ddpg"):
         raise ValueError(
-            "ddpg needs a goal/continuous-action env, not an ALE game (same "
-            "as the reference); use toybox_tpu_torch.rl.ddpg.learn directly")
+            f"{alg} needs a goal/continuous-action env, not an ALE game "
+            f"(same as the reference); use toybox_tpu_torch.rl.{alg}.learn "
+            "directly")
     else:
-        if alg != "her":
-            alg_defaults(alg)             # ValueError for an unknown alg
-        raise NotImplementedError(
-            f"alg {alg!r}: its learner is not ported to toybox_tpu_torch "
-            f"yet (ROADMAP.md §1: still missing {', '.join(MISSING_ALGS)}); "
-            "its checkpoints play through regress and sample_tests")
+        alg_defaults(alg)                 # ValueError for an unknown alg
     return learn, alg_defaults(alg)
 
 

@@ -79,6 +79,12 @@ def play_batched(game: str, cfg_js, st_js, *, state_dict, alg: str,
     return totals.cpu().numpy()
 
 
+def env_config(module, cfg, device="cuda"):
+    """``cfg``, or the game module's default config (on ``device``) when
+    it is None."""
+    return cfg if cfg is not None else module.default_config(device)
+
+
 def run_scenario(scenario_cls, *, state_dict=None, alg: str = "ppo",
                  network: str = "cnn", episodes: int | None = None,
                  seed: int = 0, max_frames: int | None = None,

@@ -1,1 +1,3 @@
-"""Training utilities: checkpoints and the kv logger."""
+"""Training utilities: checkpoints, the kv logger, the episode monitor,
+schedules, small numpy helpers, profiling and FLOP accounting, and the
+named benchmark suites."""

@@ -1,8 +1,10 @@
-"""kv logger (port of the part of toybox_tpu.utils.logger that ``learn``
-and ``run.py`` use): ``configure``, ``logkv`` and ``dumpkvs``, with the
-stdout, log, json and csv writers. The TensorBoard writer is not ported
-(ROADMAP.md §1: the surface layers).
+"""kv logger (port of toybox_tpu.utils.logger): ``configure``, ``logkv``,
+``logkv_mean``, ``dumpkvs``, ``log`` with its levels, ``get_dir`` and the
+``ProfileKV``/``profile`` timers, with the stdout, log, json and csv
+writers. The TensorBoard writer is not ported (ROADMAP.md §1: the surface
+layers).
 
+Running means are kept as (sum, count) pairs and written as their mean.
 The CSV writer rewrites the file from its buffered rows when a new column
 appears.
 """
@@ -10,10 +12,18 @@ appears.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import os
 import sys
 import tempfile
+import time
+
+DEBUG = 10
+INFO = 20
+WARN = 30
+ERROR = 40
+DISABLED = 50
 
 
 def _as_scalar(v):
@@ -26,7 +36,20 @@ def _as_scalar(v):
         return str(v)
 
 
-class HumanOutputFormat:
+class KVWriter:
+    def writekvs(self, kvs):
+        raise NotImplementedError
+
+    def close(self):
+        pass
+
+
+class SeqWriter:
+    def writeseq(self, seq):
+        raise NotImplementedError
+
+
+class HumanOutputFormat(KVWriter, SeqWriter):
     """Boxed two-column table on a stream or file."""
 
     MAXWIDTH = 30
@@ -54,12 +77,15 @@ class HumanOutputFormat:
         self.file.write(f"{rule}\n{body}{rule}\n")
         self.file.flush()
 
+    def writeseq(self, seq):
+        print(*seq, file=self.file, flush=True)
+
     def close(self):
         if self._owns:
             self.file.close()
 
 
-class JSONOutputFormat:
+class JSONOutputFormat(KVWriter):
     """One JSON object per dump, newline-delimited."""
 
     def __init__(self, filename):
@@ -73,7 +99,7 @@ class JSONOutputFormat:
         self.file.close()
 
 
-class CSVOutputFormat:
+class CSVOutputFormat(KVWriter):
     """CSV with a growing column set: every row is buffered, and a dump
     that brings a new key rewrites the file with the wider header."""
 
@@ -108,9 +134,6 @@ class CSVOutputFormat:
             with open(self.filename, "a") as f:
                 f.write(self._render(row))
 
-    def close(self):
-        pass
-
 
 _WRITERS = {
     "stdout": lambda d, sfx: HumanOutputFormat(sys.stdout),
@@ -141,19 +164,50 @@ class Logger:
     def __init__(self, dir, output_formats):
         self.dir = dir
         self.output_formats = list(output_formats)
+        self.level = INFO
         self.name2val: dict = {}
+        self._mean_sums: dict = {}
+        self._mean_counts: dict = {}
 
     def logkv(self, key, val):
         """Record the latest value for key (overwrites within a window)."""
         self.name2val[key] = val
 
+    def logkv_mean(self, key, val):
+        """Record val into a running mean for key over the current window."""
+        if val is None:
+            self.name2val[key] = None
+            return
+        self._mean_sums[key] = self._mean_sums.get(key, 0.0) + float(val)
+        self._mean_counts[key] = self._mean_counts.get(key, 0) + 1
+        self.name2val[key] = self._mean_sums[key] / self._mean_counts[key]
+
     def dumpkvs(self):
-        """Write the window to every writer; returns what was written."""
+        """Write the window to every kv writer; returns what was written
+        (nothing when the level is DISABLED)."""
+        if self.level == DISABLED:
+            return {}
         window = dict(self.name2val)
         for w in self.output_formats:
-            w.writekvs(window)
+            if isinstance(w, KVWriter):
+                w.writekvs(window)
         self.name2val.clear()
+        self._mean_sums.clear()
+        self._mean_counts.clear()
         return window
+
+    def log(self, *args, level=INFO):
+        """Print args to every sequence writer when level >= the logger's."""
+        if level >= self.level:
+            for w in self.output_formats:
+                if isinstance(w, SeqWriter):
+                    w.writeseq(map(str, args))
+
+    def set_level(self, level):
+        self.level = level
+
+    def get_dir(self):
+        return self.dir
 
     def close(self):
         for w in self.output_formats:
@@ -193,3 +247,43 @@ def logkv(key, val):
 
 def dumpkvs():
     return get_current().dumpkvs()
+
+
+def logkv_mean(key, val):
+    get_current().logkv_mean(key, val)
+
+
+def log(*args, **kwargs):
+    get_current().log(*args, **kwargs)
+
+
+def get_dir():
+    return get_current().get_dir()
+
+
+class ProfileKV:
+    """Add the wall time spent inside the block to wait_<name>."""
+
+    def __init__(self, name):
+        self._key = f"wait_{name}"
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        elapsed = time.perf_counter() - self._t0
+        lg = get_current()
+        lg.name2val[self._key] = lg.name2val.get(self._key, 0.0) + elapsed
+        return False
+
+
+def profile(name):
+    """Decorator form of ProfileKV."""
+    def decorate(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            with ProfileKV(name):
+                return fn(*args, **kwargs)
+        return timed
+    return decorate

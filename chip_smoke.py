@@ -37,10 +37,10 @@ Phases, each printing one line per game with its own wall time:
   7. a short torch.profiler window at 10 and 1024 envs: device kernels
      and device busy time per agent step;
   8. train (the slice's main path): ``learn`` on make_rl_env(game, 1024,
-     inkernel_warp=True), 2 updates at the Breakout recipe and one shorter
+     inkernel_warp=True), one update at the Breakout recipe and one shorter
      update (nsteps TRAIN_SHORT_STEPS) for Space Invaders and Amidar, with
      the launch counts set to 0 just before each and read just after:
-     Breakout's warp kernel launches 2 x 128 times; metrics finite;
+     Breakout's warp kernel launches 128 times; metrics finite;
      seconds per update and frames/s; then one more Breakout update,
      train_step's collect and optimize halves timed apart, profiled (the
      warp kernel's device time a rollout step);
@@ -48,7 +48,7 @@ Phases, each printing one line per game with its own wall time:
      permutations: params within UPDATE_ATOL;
  10. the identity learning test on the card (mlp, 16 envs, 60 updates):
      mean reward > 0.8;
- 11. the CLI: ``toybox_tpu_torch.run.main`` trains 2 updates at 64 envs
+ 11. the CLI: ``toybox_tpu_torch.run.main`` trains one update at 64 envs
      and saves the policy, which reads back through the port's reader;
  12. behavior (a main path, the gate of the intervention API): each
      behavioral scenario's set-up captured on the card (config and state
@@ -162,11 +162,28 @@ Phases, each printing one line per game with its own wall time:
      (cnn_small) on the image-class env on cuda against cpu; and
      ``benchmark.main`` for Breakout (--reps 3 --steps 100 --batch-sizes
      256,2048,8192), its JSON on a line of its own.
+ 22. distributed (a main path of the distributed layer): (a)
+     ``parallel.dryrun.dryrun_multichip(1)`` on a one-rank NCCL group on
+     the card (PPO, DQN with its sharded ring, ACKTR with its all-reduced
+     K-FAC taps, one step each on tiny shapes, the envs as JAX's dryruns
+     build them: the fused max-pool kernel and the matmul warp), each
+     against the same step without a group (params within rtol 2e-4,
+     atol 1e-6), and ``ppo.learn(mesh=)`` for one update on the in-kernel
+     warp against ``ppo.learn`` without a group (the same tolerance);
+     (b) the two-process launcher, two gloo ranks on the one card: the
+     env phase's global sums and env states equal one process's past
+     every env's game over (DIST_STEPS steps of one-life games), the
+     params after one sharded PPO update within rtol 2e-4, atol 1e-6 of
+     one process's, the DQN sharded sample's slots equal the single
+     ring's; (c) cnn_im2col and cnn_coutpad forward on the card within
+     HEADS_ATOL (scaled) of the cpu's. The seconds of each part, the
+     backend and the frame kernels' launches of (a) and of (b)'s ranks.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
 phase 13's serve chunks, ``learner_launches`` summed over the runs of
-phases 18, 19 and 20; phase 21 runs no frame kernel), the total time,
+phases 18, 19 and 20; phase 21 runs no frame kernel;
+``distributed_launches`` from phase 22), the total time,
 and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
@@ -220,34 +237,38 @@ MODELS = ROOT / "models"
 SCRATCH = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM f32 rate outside the tensor cores
-SERVE_GAMES, SERVE_STEPS = 10, 200
-TRAIN_ENVS, TRAIN_UPDATES, TRAIN_SHORT_STEPS = 1024, 2, 32
+SERVE_GAMES, SERVE_STEPS = 10, 100
+TRAIN_ENVS, TRAIN_UPDATES, TRAIN_SHORT_STEPS = 1024, 1, 32
 RECIPE = dict(network="cnn", nsteps=128, nminibatches=4, noptepochs=4,
               lr=2.5e-4, cliprange=0.1, gamma=0.99, lam=0.95,
               ent_coef=0.01)                 # run.ALG_DEFAULTS["ppo"]
 UPDATE_ENVS, UPDATE_STEPS, UPDATE_ATOL = 8, 8, 1e-5
-CLI_ENVS = 64
+CLI_ENVS, CLI_UPDATES = 64, 1
 WARP = 84
-THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 100
+THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 50
 ENGINE_ENVS, ENGINE_STEPS = 256, 200
-PIPELINE_ENVS, PIPELINE_STEPS = 10, 40
-PROFILE_STEPS = 5
+PIPELINE_ENVS, PIPELINE_STEPS = 10, 20
+PROFILE_STEPS = 3
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
 GATE_EPISODES, GATE_MAX_FRAMES = 2, 128
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
 HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 8, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
-# the depths of phases 14 and 15 (engine, pipeline and exact steps), of
-# phase 7's profile windows, phase 12's gate, phase 13's serve chunks and
-# phase 16's extraction, of phase 8's updates and of the learner runs of
-# phases 18 and 19 are cut to keep the whole run well under 600 s
-# (PERF.md, section 4)
-GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 100, 25, 32
+# the depths of phases 4, 14 and 15 (engine, pipeline and exact steps), of
+# phase 5's serve, phase 6's throughput, phase 7's profile windows, phase
+# 12's gate, phase 13's serve chunks and phase 16's extraction, of phase
+# 8's and phase 11's updates and of the learner runs of phases 18 and 19
+# are cut to keep the whole run under 540 s (PERF.md, section 4)
+GRID_ENVS, GRID_ENGINE_STEPS, GRID_PIPE_STEPS, GRID_NSTEPS = 1024, 50, 12, 32
 OBS_MODES = ("grayscale", "rgba", "rgb")
 OBS_EXACT_ENVS, OBS_EXACT_STEPS = 64, 10
-OBS_TIME_ENVS, OBS_STEPS = 1024, 20
+OBS_TIME_ENVS, OBS_STEPS = 1024, 10
 STATE_FRAMES, SEED_STATE_FRAMES, GYM_STEPS = 60, 1500, 100
 SEED_STATE_SEEDS = (0, 1, 2, 3)
+# phase 22: envs in all (split over the ranks), the env phase's steps, the
+# sharded update against one process's (tests/test_parallel.py's
+# tolerance), and each group's and spawned rank's time limit in seconds
+DIST_ENVS, DIST_STEPS, DIST_TOL, DIST_TIMEOUT = 8, 128, (2e-4, 1e-6), 240
 FIXTURES = ROOT / "tests" / "fixtures" / "seed_states"
 DEV = "cuda"
 T_START = time.perf_counter()
@@ -744,7 +765,7 @@ def engine_phase(g: Game) -> str:
         seeds, device=d))[0], d) for d, env in envs.items()}
     n_act = envs["cpu"].num_actions
     r = np.random.default_rng(7)
-    steps = ENGINE_STEPS if g.name == "breakout" else 2 * ENGINE_STEPS
+    steps = 2 * ENGINE_STEPS if g.name == "amidar" else ENGINE_STEPS
     n_done = 0
     for i in range(steps):
         a = r.integers(0, n_act, size=ENGINE_ENVS)
@@ -1160,19 +1181,20 @@ def identity_phase() -> str:
 
 
 def cli_phase() -> str:
-    """``python -m toybox_tpu_torch.run --alg=ppo`` at CLI_ENVS envs for 2
-    updates, saving the policy; the file reads back through the port's
-    reader with the trained params."""
+    """``python -m toybox_tpu_torch.run --alg=ppo`` at CLI_ENVS envs for
+    CLI_UPDATES updates, saving the policy; the file reads back through
+    the port's reader with the trained params."""
     shutil.rmtree(SCRATCH, ignore_errors=True)
     SCRATCH.mkdir(parents=True)
     path = SCRATCH / "breakout.model"
     n = CLI_ENVS
-    steps = 2 * n * run.ALG_DEFAULTS["ppo"]["nsteps"] * 4
+    steps = CLI_UPDATES * n * run.ALG_DEFAULTS["ppo"]["nsteps"] * 4
     state = run.main(["--alg=ppo", "--env=BreakoutToyboxNoFrameskip-v4",
                       f"--num_envs={n}", f"--num_timesteps={steps}",
                       f"--save_path={path}", f"--log_path={SCRATCH / 'log'}",
                       f"--device={DEV}"])
-    check(state.update == 2, f"the CLI trained {state.update} updates")
+    check(state.update == CLI_UPDATES,
+          f"the CLI trained {state.update} updates")
     module = build_policy((84, 84, 4), state.module.pi.out_features, "cnn",
                           device="cpu")[0]
     ppo.load_params(path, module)
@@ -1180,7 +1202,8 @@ def cli_phase() -> str:
         check(torch.equal(module.state_dict()[k], v.cpu()),
               f"the saved policy differs in {k}")
     rows = (SCRATCH / "log" / "progress.csv").read_text().splitlines()
-    check(len(rows) == 3, f"progress.csv has {len(rows)} lines")
+    check(len(rows) == CLI_UPDATES + 1,
+          f"progress.csv has {len(rows)} lines")
     return (f"run.main --alg=ppo --num_envs={n} --num_timesteps={steps}: "
             f"{state.update} updates, {path.stat().st_size} B saved and read "
             f"back equal; progress.csv {len(rows) - 1} rows")
@@ -2771,6 +2794,124 @@ def benchmark_phase() -> str:
         f"{k} {v:.0f}" for k, v in rates.items())
 
 
+def _params_diff(got, want) -> float:
+    """The largest |got - want| over two modules' state_dicts; fails
+    unless every entry lies within DIST_TOL (rtol, atol)."""
+    rtol, atol = DIST_TOL
+    worst = 0.0
+    sd = want.state_dict()
+    for k, v in got.state_dict().items():
+        d = (v - sd[k]).abs()
+        check(bool((d <= atol + rtol * sd[k].abs()).all()),
+              f"{k} off by {float(d.max()):.3g} beyond {DIST_TOL}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def distributed_phase() -> tuple:
+    """Phase 22: (a) ``dryrun_multichip(1)`` and ``ppo.learn(mesh=)`` on
+    a one-rank NCCL group on the card, each against the same run without
+    a group (params within DIST_TOL);
+    (b) the two-process launcher, two gloo ranks on cuda:0 (NCCL refuses
+    two ranks on one GPU): the env phase's sums and states, the PPO
+    params and the DQN sample against one process's; (c) cnn_im2col and
+    cnn_coutpad on the card against the CPU. The launch counts are set to
+    0 before (a)'s sharded runs and read after them, and (b)'s ranks
+    report their own. Returns (launches, backend, detail)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from toybox_tpu_torch.parallel import dryrun as pdry
+    from toybox_tpu_torch.parallel.mesh import make_mesh
+    from toybox_tpu_torch.rl import acktr, dqn
+
+    parts = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+        backend = dist.get_backend()
+        try:
+            _reset_launches()
+            sharded = pdry.dryrun_multichip(1, device=DEV)
+            state = ppo.learn(game="breakout", num_envs=DIST_ENVS,
+                              network="cnn_small", nsteps=4, nminibatches=2,
+                              noptepochs=1,
+                              total_timesteps=DIST_ENVS * 4 * 4,
+                              mesh=make_mesh(), device=DEV)
+            torch.cuda.synchronize()
+            launches = dict(render_cuda.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+    check(backend == "nccl", f"the one-rank group's backend is {backend}")
+    check(launches["breakout_frame_fused"] > 0
+          and launches["breakout_frame_fused_warp"] > 0,
+          f"a frame kernel did not launch in phase 22 (a): {launches}")
+    check(state.update == 1, f"learn(mesh=) took {state.update} updates")
+    plain = ppo.learn(game="breakout", num_envs=DIST_ENVS,
+                      network="cnn_small", nsteps=4, nminibatches=2,
+                      noptepochs=1, total_timesteps=DIST_ENVS * 4 * 4,
+                      device=DEV)
+    diffs = [f"learn {_params_diff(state.module, plain.module):.3g}"]
+    for name, mod in (("ppo", ppo), ("dqn", dqn), ("acktr", acktr)):
+        (s1, m1), (s0, m0) = sharded[name], mod.dryrun(1, "breakout",
+                                                       device=DEV,
+                                                       sharded=False)
+        diffs.append(f"{name} {_params_diff(s1.module, s0.module):.3g}")
+        for k in m0:
+            check(bool(torch.isfinite(m1[k]) | torch.isnan(m0[k])),
+                  f"{name} {k} not finite")
+    t1 = time.perf_counter()
+    parts.append(f"(a) dryrun_multichip(1) on a one-rank {backend} group: "
+                 "params against no group, largest diff "
+                 + ", ".join(diffs) + f" (learn(mesh=): {DIST_ENVS} envs, "
+                 f"one update) ({t1 - t0:.2f} s)")
+
+    opts = dict(game="breakout", envs=DIST_ENVS, steps=DIST_STEPS)
+    ranks = pdry.run_ranks(("env", "train", "dqn"), world=2, device=DEV,
+                           timeout=DIST_TIMEOUT, **opts)
+    t2 = time.perf_counter()
+    single = {name: pdry.PHASES[name](None, DEV, opts)
+              for name in ("env", "train", "dqn")}
+    checks = pdry.compare(ranks, single)
+    check(all(ok for ok, _ in checks.values()),
+          f"two gloo ranks against one process: {checks}")
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    parts.append(
+        f"(b) 2 gloo ranks on {DEV}, {DIST_ENVS} Breakout envs: env "
+        f"{DIST_STEPS} steps, {checks['env_game_over'][1]:.0f} game overs, "
+        f"sums {checks['env_global_sums'][1]} and states"
+        " equal one process's; PPO params within "
+        f"{checks['train_params_close'][1]:.3g} (tol {pdry.PARAM_TOL}); DQN "
+        f"sample slots {checks['dqn_sample_idx_equal'][1]} equal (ranks "
+        f"{t2 - t1:.2f} s, one process {time.perf_counter() - t2:.2f} s)")
+
+    t3 = time.perf_counter()
+    from toybox_tpu_torch.rl.models import init_trunk, network_factory
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (HEADS_N, WARP, WARP, 4), dtype=np.uint8))
+    for net in ("cnn_im2col", "cnn_coutpad"):
+        cpu = network_factory(net)((WARP, WARP, 4))
+        init_trunk(cpu, torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to(DEV)
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(DEV)).cpu()
+        err, scale = _max_diff(got, want)
+        tol = HEADS_ATOL * max(1.0, scale)
+        check(err <= tol, f"{net} on the card off the cpu by {err:.3g}")
+        parts.append(f"(c) {net} N={HEADS_N}: max diff {err:.3g} (tol "
+                     f"{tol:.3g})")
+    parts[-1] += f" ({time.perf_counter() - t3:.2f} s)"
+    parts.append("launches " + ", ".join(f"{k} {v}" for k, v in
+                                          launches.items() if v))
+    return launches, backend, "; ".join(parts)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2977,6 +3118,12 @@ def main() -> int:
     phase(21, "tools", t0, benchmark_phase())
     phase(21, "goal learners and tools", t21, "the whole phase")
 
+    # 22. the distributed layer: the multi-rank dryruns, learn(mesh=), the
+    # two-process launcher, and the layout variants of NatureCNN
+    t0 = time.perf_counter()
+    dist_launches, _, detail = distributed_phase()
+    phase(22, "distributed", t0, detail)
+
     kernels = []
     for g in GAMES:
         for name, line in zip((g.kernel, g.kernel + "_fused",
@@ -2990,6 +3137,7 @@ def main() -> int:
                 gate_launches=gate_launches.get(name, 0),
                 heads_launches=heads_launches.get(name, 0),
                 learner_launches=learner_launches.get(name, 0),
+                distributed_launches=dist_launches.get(name, 0),
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],

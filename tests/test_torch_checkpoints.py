@@ -19,6 +19,17 @@ from toybox_tpu_torch.rl.eval_adapter import (CHECKPOINT_HEADS,
 from toybox_tpu_torch.sample_tests.families import (FAMILIES, GAME_PREFIX,
                                                     model_path)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these ops are small, and the test workers
+    share the cores (as tests/test_torch_codecs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODELS = sorted(p.name for p in (ROOT / "models").glob("*.model"))
 GAME_OF = {v: k for k, v in GAME_PREFIX.items()}

@@ -9,6 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads the OpenBLAS that JAX's LAPACK uses)
+import threadpoolctl
 import torch
 
 import toybox_tpu
@@ -16,6 +18,13 @@ from toybox_tpu.games import get_game as j_get_game
 from toybox_tpu.sample_tests import get_scenarios as j_get_scenarios
 from toybox_tpu.sample_tests.runner import capture_setup as j_capture_setup
 from toybox_tpu_torch.games import get_game as t_get_game
+
+# OpenBLAS on one thread for the rest of this test worker's life: a
+# worker that forks (the vec-env executors' tests fork their workers)
+# after its OpenBLAS thread pool has started leaves its later LAPACK calls
+# (JAX's linear algebra on the CPU) waiting forever. The port's test files
+# import this module.
+threadpoolctl.threadpool_limits(1, user_api="blas")
 
 GAMES = ("breakout", "space_invaders", "amidar")
 QUERIES = {

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 from toybox_tpu.core import actions as jactions
 from toybox_tpu.core import rng as jrng
 from toybox_tpu_torch.core import actions as tactions

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 from toybox_tpu.rl import eval_adapter as j_adapter
 from toybox_tpu.rl.acer import RecurrentQPolicy as JRecurrentQPolicy
 from toybox_tpu.rl.acktr import KfacCNNPolicy as JKfacCNNPolicy

@@ -9,6 +9,7 @@ import pytest
 import torch
 from flax import serialization
 
+from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 from toybox_tpu.rl.distributions import CategoricalPd as JPd
 from toybox_tpu.rl.policies import build_eval_policy as j_build_eval_policy
 from toybox_tpu.rl.policies import build_policy as j_build_policy

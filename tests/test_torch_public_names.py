@@ -27,17 +27,8 @@ from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG, PORT_PKG = ROOT / "toybox_tpu", ROOT / "toybox_tpu_torch"
 
-#: (module, name) -> why the port does not have it yet
+#: (module, name) -> why the port does not have it
 EXEMPT = {
-    ("rl/ppo.py", "dryrun"): "ROADMAP §1 item 7, the distributed layer",
-    ("rl/dqn.py", "dryrun"): "ROADMAP §1 item 7, the distributed layer",
-    ("rl/acktr.py", "dryrun"): "ROADMAP §1 item 7, the distributed layer",
-    ("rl/models.py", "cnn_im2col"): "ROADMAP §1 item 8",
-    ("rl/models.py", "cnn_coutpad"): "ROADMAP §1 item 8",
-    ("rl/models.py", "Im2ColCNN"): "ROADMAP §1 item 8",
-    ("rl/models.py", "CoutPadCNN"): "ROADMAP §1 item 8",
-    ("utils/logger.py", "TensorBoardOutputFormat"):
-        "ROADMAP §1 item 6, the tensorboard format",
     # jnp dtype aliases: the port holds u32 words in int64 (ROADMAP
     # hazards, RNG dtype), so it has no such aliases
     ("games/common.py", "I32"): "hazards: RNG dtype",
@@ -50,11 +41,6 @@ EXEMPT = {
 }
 #: the JAX modules with no counterpart in the port, and why
 NOT_PORTED_MODULES = {
-    "envs/retro_wrappers.py": "ROADMAP §1 item 5",
-    "human_play.py": "ROADMAP §1 item 6",
-    "results_plotter.py": "ROADMAP §1 item 6",
-    "parallel/__init__.py": "ROADMAP §1 item 7",
-    "parallel/mesh.py": "ROADMAP §1 item 7",
     "ops/render_pallas.py": "ported as ops/render_cuda.py, render_si.py "
                             "and render_amidar.py over csrc/*.cu",
 }
@@ -254,7 +240,7 @@ def test_model_registry_names():
     from toybox_tpu.rl import models as jm
     from toybox_tpu_torch.rl import models as pm
 
-    ported = set(jm._REGISTRY) - {"cnn_im2col", "cnn_coutpad"}
+    ported = set(jm._REGISTRY)
     assert set(pm.NETWORKS) == ported
     for name in ported:
         assert pm.get_network_builder(name) is getattr(pm, name) is \
@@ -273,8 +259,11 @@ def test_model_registry_names():
         assert pm.get_network_builder("tiny_mlp")((3,)).latent == 2
     finally:
         del pm.NETWORKS["tiny_mlp"]
+    assert type(pm.get_network_builder("cnn_im2col")((84, 84, 4))) is \
+        pm.Im2ColCNN
+    assert type(pm.cnn_coutpad((84, 84, 4))) is pm.CoutPadCNN
     with pytest.raises(ValueError, match="cnn_im2col"):
-        pm.get_network_builder("cnn_im2col")
+        pm.get_network_builder("cnn_unknown")
 
 
 def test_recurrent_learner_names():
@@ -341,5 +330,5 @@ def test_logger_names(tmp_path):
     assert "shown" in text and "hidden" not in text
     assert all(isinstance(w, logger.KVWriter) for w in lg.output_formats)
     assert isinstance(lg.output_formats[2], logger.SeqWriter)
-    with pytest.raises(NotImplementedError, match="tensorboard"):
-        logger.make_output_format("tensorboard", str(tmp_path))
+    assert issubclass(logger.TensorBoardOutputFormat, logger.KVWriter)
+    assert set(logger._WRITERS) == set(jl._WRITER_FACTORIES)

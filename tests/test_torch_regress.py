@@ -6,9 +6,21 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from toybox_tpu_torch import regress
 from toybox_tpu_torch.rl.checkpoint import load_state_dict
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: these ops are small, and the test workers
+    share the cores (as tests/test_torch_codecs.py's fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "msgpack", "toybox_tpu")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 import toybox_tpu.games.amidar as jam
 import toybox_tpu.games.space_invaders as jsi
 from toybox_tpu.core.actions import ale_to_input

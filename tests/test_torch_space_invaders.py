@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_codecs import one_torch_thread  # noqa: F401
 import toybox_tpu.games.space_invaders as jsi
 from toybox_tpu.core.actions import ale_to_input as j_ale_to_input
 from toybox_tpu.envs.batched import make_batched_env as j_make_batched_env

@@ -5,6 +5,9 @@ the batched executor equal to JAX's, and the refusal of envs on cuda in
 forked workers."""
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -41,6 +44,22 @@ def test_vec_env_dummy_equals_batched():
 
 
 def test_vec_env_dummy_subproc_shmem_consistency():
+    """Dummy == Subproc == Shmem on forked workers, checked in a fresh
+    interpreter: a process whose JAX runtime has run a computation and
+    then forks can leave its later JAX computations waiting forever (this
+    test worker runs JAX), so the forking executors run where JAX has
+    computed nothing."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", "from tests.test_torch_vec_env import "
+         "_executors_agree; _executors_agree()"],
+        cwd=repo, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _executors_agree():
+    """Dummy, Subproc and Shmem executors over the same counting envs
+    give the same steps, across an episode boundary."""
     n = 3
     fns = [lambda: _CountingEnv() for _ in range(n)]
     venvs = [DummyVecEnv(fns), SubprocVecEnv(fns), ShmemVecEnv(fns)]

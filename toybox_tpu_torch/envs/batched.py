@@ -82,7 +82,7 @@ def _make_obs_fn(module, obs_mode):
 
 def make_batched_env(game_name: str, num_envs: int, config=None,
                      obs_mode: str = "grayscale", auto_reset: bool = True,
-                     fast_auto_reset: bool = False,
+                     fast_auto_reset: bool = False, seed_stride=None,
                      device="cuda") -> BatchedEnvFns:
     """Batched env over ``game_name``'s engine on ``config.device`` (or on
     ``device`` with the default config).
@@ -95,8 +95,14 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
     ``reset`` started. A state from ``reset_to`` may hold other values in
     those fields (an intervention wrote them), so its auto-resets select
     every field, as new_game resets them. A game that lists no such fields
-    takes the full select."""
+    takes the full select.
+
+    seed_stride: what an auto-reset adds to the scrambled seed (default
+    ``num_envs``). A rank's block of an env set spread over a mesh passes
+    the whole set's count, so that its envs play the games that the same
+    envs of one process would."""
     module = get_game(game_name)
+    stride = num_envs if seed_stride is None else int(seed_stride)
     fast = fast_auto_reset and bool(getattr(module, "STEP_CONSTANT_FIELDS",
                                             ()))
     if config is None:
@@ -153,7 +159,7 @@ def make_batched_env(game_name: str, num_envs: int, config=None,
 
         if auto_reset:
             # reseeded deterministically per episode (u32 wrap)
-            new_seeds = (_rng.mul32(state.seeds, 2654435761) + num_envs) \
+            new_seeds = (_rng.mul32(state.seeds, 2654435761) + stride) \
                 & _rng.MASK32
             seeds = torch.where(done, new_seeds, state.seeds)
             if fast and state.constants_fresh:

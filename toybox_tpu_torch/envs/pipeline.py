@@ -61,7 +61,7 @@ class PipelineState:
 def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
                 frame_size: int = 84, frame_stack: int = 4,
                 episodic_life: bool = True, clip_rewards: bool = True,
-                inkernel_warp: bool = False,
+                inkernel_warp: bool = False, seed_stride=None,
                 device="cuda") -> BatchedEnvFns:
     """BatchedEnvFns with DeepMind preprocessing:
     step(state, actions) -> (state, obs[N,84,84,k], reward, done, info),
@@ -69,7 +69,8 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
     itself on true game over). ``inkernel_warp`` warps each step's
     max-pooled frame inside the frame kernel (one launch per step, only
     [N, 84, 84] written) instead of with two matmuls after it; for a
-    game with no frame kernel it raises ValueError."""
+    game with no frame kernel it raises ValueError. ``seed_stride`` is
+    the auto-reset's (``make_batched_env``)."""
     if skip < 2:
         raise ValueError("make_rl_env requires skip >= 2 (the last two "
                          "frames are always rendered for the max-pool)")
@@ -77,7 +78,8 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
     cfg = config if config is not None else module.default_config(device)
     dev = cfg.device
     inner = make_batched_env(game_name, num_envs, config=cfg,
-                             obs_mode="none", fast_auto_reset=True)
+                             obs_mode="none", fast_auto_reset=True,
+                             seed_stride=seed_stride)
     if game_name in _RENDERERS:
         factory, factory2 = _RENDERERS[game_name]
         render_gray = factory(cfg)

@@ -53,16 +53,21 @@ def discounted_returns(rewards: torch.Tensor, dones: torch.Tensor,
 
 def a2c_loss(logits: torch.Tensor, vpred: torch.Tensor,
              actions: torch.Tensor, returns: torch.Tensor, ent_coef: float,
-             vf_coef: float, num_actions):
+             vf_coef: float, num_actions, mean=None):
     """(loss, metrics) of the policy's outputs on a rollout, as the JAX
     ``loss_fn``: the advantage returns - vpred is held constant in the
-    policy loss."""
+    policy loss. ``mean`` takes the place of each per-row mean (a rank's
+    share of a rollout spread over a mesh: its rows' sum over the whole
+    rollout's size)."""
+    if mean is None:
+        def mean(x):
+            return x.mean()
     pd = pd_from_logits(num_actions, logits)
     neglogp = pd.neglogp(actions)
     adv = returns - vpred
-    pg_loss = (adv.detach() * neglogp).mean()
-    vf_loss = 0.5 * torch.square(vpred - returns).mean()
-    entropy = pd.entropy().mean()
+    pg_loss = mean(adv.detach() * neglogp)
+    vf_loss = 0.5 * mean(torch.square(vpred - returns))
+    entropy = mean(pd.entropy())
     loss = pg_loss - entropy * ent_coef + vf_loss * vf_coef
     return loss, dict(policy_loss=pg_loss, value_loss=vf_loss,
                       policy_entropy=entropy)

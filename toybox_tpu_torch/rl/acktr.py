@@ -36,7 +36,7 @@ from toybox_tpu_torch.regress import full_f32
 from toybox_tpu_torch.rl import a2c, ppo
 from toybox_tpu_torch.rl.checkpoint import (load_flax_tree, params_from_flax,
                                             params_to_flax, save_flax_tree)
-from toybox_tpu_torch.rl.distributions import CategoricalPd
+from toybox_tpu_torch.rl.distributions import CategoricalPd, gumbel
 from toybox_tpu_torch.rl.kfac import (KfacConv, KfacDense, kfac_apply,
                                       kfac_factors, kfac_inverse_shapes,
                                       kfac_invert)
@@ -226,19 +226,40 @@ class Hyper:
 
 def kfac_step(state: ACKTRState, obs: torch.Tensor, actions: torch.Tensor,
               returns: torch.Tensor, lrnow: float, hp: Hyper,
-              num_actions) -> dict:
+              num_actions, mesh=None) -> dict:
     """One ACKTR step on a flat batch (obs [B, ...], actions and returns
     [B]) at update ``state.update``, in place on the state's params,
     momentum, factor EMA and inverses; returns the loss metrics and
-    step_coeff (detached tensors)."""
+    step_coeff (detached tensors).
+
+    The batch is this rank's share of one spread over every rank of
+    ``mesh`` (all of it for one process). The loss's means are the
+    rank's sums over the whole batch's size, and one all-reduce sums the
+    raw gradients, the perturbation taps and the metrics. The taps are
+    sums over the batch (the perturbations have a batch of 1), so the
+    Kronecker factors made from them are the whole batch's: they are
+    all-reduced before the EMA.
+    The A taps are the init's, alike on every rank. The EMA, the
+    inversion and the step then run replicated."""
+    from toybox_tpu_torch.parallel.mesh import all_reduce_tensors
     net = state.module
     names = [n for n, _ in net.named_parameters()]
     params = [p for _, p in net.named_parameters()]
     perts = {k: v.clone().requires_grad_(True) for k, v in state.perts.items()}
     logits, vpred = net(obs, perts=perts)
+    n_all = obs.shape[0] * (1 if mesh is None else mesh.size)  # equal blocks
+
+    def mean(x):
+        return x.sum() / n_all
+
     loss, metrics = a2c.a2c_loss(logits, vpred, actions, returns,
-                                 hp.ent_coef, hp.vf_coef, num_actions)
+                                 hp.ent_coef, hp.vf_coef, num_actions, mean)
     grads = torch.autograd.grad(loss, params + list(perts.values()))
+    keys = sorted(metrics)
+    *grads, sums = all_reduce_tensors(
+        list(grads) + [torch.stack([metrics[k].detach() for k in keys])],
+        mesh)
+    metrics = dict(zip(keys, sums))
     raw = dict(zip(names, grads[:len(params)]))
     taps_g = dict(zip(perts, grads[len(params):]))
 
@@ -271,15 +292,23 @@ def kfac_step(state: ACKTRState, obs: torch.Tensor, actions: torch.Tensor,
 def make_acktr(env_fns, *, nsteps=20, lr=0.25, gamma=0.99, ent_coef=0.01,
                vf_coef=0.5, kfac_clip=0.001, damping=0.01,
                max_grad_norm=0.5, hidden=512, total_updates=1,
-               invert_every=1, stats_decay=0.99, device="cuda"):
+               invert_every=1, stats_decay=0.99, device="cuda", mesh=None):
     """Build (init_fn, train_step, net) over a batched env whose tensors
     lie on ``device``: init_fn(seed) -> ACKTRState (KfacCNNPolicy
     initialised as flax does, the init taps, zero momentum, factors and
     inverses, the envs reset from seeds drawn from the state's
     generator); train_step(state) -> (state, metrics), a ppo.TrainStep:
-    ``collect`` the rollout and the returns, ``optimize`` kfac_step."""
+    ``collect`` the rollout and the returns, ``optimize`` kfac_step.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) ``env_fns`` holds this
+    rank's block of the mesh's envs (built with ``seed_stride`` = all of
+    them): the draws are made for the whole env
+    set, alike on every rank (each rank takes its block's rows), and
+    kfac_step all-reduces the gradients and the factors' taps."""
+    from toybox_tpu_torch.parallel.mesh import env_block
     dev = torch.device(device)
     num_envs, nact = env_fns.num_envs, env_fns.num_actions
+    envs = env_block(mesh, num_envs)
     obs_shape = tuple(env_fns.obs_shape)
     hp = Hyper(ent_coef=ent_coef, vf_coef=vf_coef, kfac_clip=kfac_clip,
                damping=damping, max_grad_norm=max_grad_norm,
@@ -294,8 +323,8 @@ def make_acktr(env_fns, *, nsteps=20, lr=0.25, gamma=0.99, ent_coef=0.01,
         kfac_a, perts = _init_taps(net, obs_shape, dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        seeds = torch.randint(0, 2**31 - 1, (num_envs,), generator=gen,
-                              device=dev)
+        seeds = envs.take(torch.randint(0, 2**31 - 1, (envs.n_global,),
+                                        generator=gen, device=dev))
         env_state, _ = env_fns.reset(seeds)
         meta = net.layer_meta()
         return ACKTRState(
@@ -310,7 +339,9 @@ def make_acktr(env_fns, *, nsteps=20, lr=0.25, gamma=0.99, ent_coef=0.01,
     def p_step(obs, generator):
         logits, values = net(obs)
         pd = CategoricalPd(logits)
-        actions = pd.sample(generator)
+        actions = pd.sample(noise=envs.take(gumbel(
+            (envs.n_global,) + tuple(logits.shape[1:]), generator,
+            logits.device, logits.dtype)))
         return actions, values, pd.neglogp(actions), logits
 
     def collect(state: ACKTRState):
@@ -331,8 +362,9 @@ def make_acktr(env_fns, *, nsteps=20, lr=0.25, gamma=0.99, ent_coef=0.01,
                               floor=0.05)
         metrics = kfac_step(
             state, buf.obs.reshape((-1,) + tuple(buf.obs.shape[2:])),
-            buf.actions.reshape(-1), returns.reshape(-1), lrnow, hp, nact)
-        ep = ppo.episode_metrics(buf)
+            buf.actions.reshape(-1), returns.reshape(-1), lrnow, hp, nact,
+            mesh)
+        ep = ppo.episode_metrics(buf, mesh)
         metrics.update(eprewmean=ep["eprewmean"],
                        mean_reward=ep["mean_reward"])
         state.update += 1
@@ -384,3 +416,28 @@ def learn(*, env=None, game="breakout", num_envs=16, total_timesteps=100_000,
     if save_path is not None:
         save_params(save_path, state)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank dry run (the port's parallel.dryrun.dryrun_multichip)
+# ---------------------------------------------------------------------------
+
+def dryrun(n_devices: int, game: str = "breakout", device="cuda",
+           sharded: bool = True):
+    """One full ACKTR update on tiny shapes (2 envs a rank, nsteps 4, 36
+    pixel frames, fc0 of 32, inverting every update), data-parallel over
+    a mesh of the process group's ``n_devices`` ranks (``sharded``), or
+    the same update in one process without a mesh. The env is built as
+    the JAX dryrun builds it (``make_rl_env`` at 36: the fused max-pool
+    kernel and the matmul warp; the in-kernel warp is fixed at 84).
+    Returns (state, metrics)."""
+    from toybox_tpu_torch.parallel.dryrun import dryrun_mesh
+    full_f32()
+    mesh = dryrun_mesh(n_devices, sharded)
+    ranks = mesh.size if sharded else 1
+    env_fns = make_rl_env(game, 2 * n_devices // ranks, frame_size=36,
+                          seed_stride=2 * n_devices, device=device)
+    init_fn, train_step, _ = make_acktr(env_fns, nsteps=4, hidden=32,
+                                        invert_every=1, total_updates=1,
+                                        device=device, mesh=mesh)
+    return train_step(init_fn(0))

@@ -13,10 +13,12 @@ port's modules.
   ``ppo.load_params`` reads a model the port trained.
 - ``params_from_flax`` maps the flax param tree of any eval head to the
   state_dict of the port's module, one mapping per template
-  (``flax_template``: pi + V or Q over NatureCNN, SmallCNN, ConvOnly or
-  MLP, deepq's QNetwork, dueling or not, acktr's KfacCNNPolicy in both
-  its forms, and the LSTM trunks); it raises on a tree it does not know.
-  ``params_to_flax`` is its inverse on the ``params`` collection.
+  (``flax_template``: pi + V or Q over NatureCNN, SmallCNN, ConvOnly,
+  MLP or NatureCNN's two layout variants (cnn_im2col, cnn_coutpad, whose
+  convs carry their kernels as named params), deepq's QNetwork, dueling
+  or not, acktr's KfacCNNPolicy in both its forms, and the LSTM
+  trunks); it raises on a tree it does not know. ``params_to_flax`` is
+  its inverse on the ``params`` collection.
 - ``dense_stack_from_flax`` and ``dense_stack_to_flax`` carry a tree of
   Dense layers only (GAIL's discriminator, DDPG's actor and critic) into
   and out of a module of ``layers``; JAX saves no such tree to a file.
@@ -206,6 +208,23 @@ def save_flax_tree(path, tree: dict) -> None:
 #: trunk kind -> (number of convolutions, a Dense after them)
 _CONV_TRUNKS = {"cnn": (3, True), "cnn_small": (2, True),
                 "conv_only": (3, False)}
+#: the layout variants of NatureCNN: trunk keys and [(flax path in the
+#: trunk, state_dict name in the trunk, kind)]; a path ending in a param
+#: prefix ("c1") names the flat params "<prefix>_kernel", "<prefix>_bias"
+_VARIANT_TRUNKS = {
+    "cnn_im2col": ({"conv1_kernel", "conv1_bias", "Conv_0", "Conv_1",
+                    "Dense_0"},
+                   [(("conv1",), "conv1", "im2col"),
+                    (("Conv_0",), "conv_0", "conv"),
+                    (("Conv_1",), "conv_1", "conv"),
+                    (("Dense_0",), "fc", "dense_chw")]),
+    "cnn_coutpad": ({f"c{i}_{k}" for i in (1, 2, 3) for k in ("kernel",
+                                                             "bias")}
+                    | {"Dense_0"},
+                    [((f"c{i}",), f"c{i}", "conv_flat") for i in (1, 2, 3)]
+                    + [(("Dense_0",), "fc", "dense_chw")]),
+}
+_FLAT_KINDS = ("im2col", "conv_flat")
 #: (base trunk, LayerNorm) -> recurrent network name
 _RECURRENT = {("cnn", False): "cnn_lstm", ("cnn", True): "cnn_lnlstm",
               ("mlp", False): "lstm"}
@@ -229,6 +248,9 @@ def _params(tree: dict) -> dict:
 
 def _trunk_kind(keys) -> str:
     keys = set(keys)
+    for kind, (names, _) in _VARIANT_TRUNKS.items():
+        if keys == names:
+            return kind
     for kind, (n, fc) in _CONV_TRUNKS.items():
         if keys == {f"Conv_{i}" for i in range(n)} | (
                 {"Dense_0"} if fc else set()):
@@ -242,9 +264,9 @@ def flax_template(tree: dict) -> str:
     """The template of a flax param tree, as "head:network":
 
     - ``pi_v:<trunk>``: PolicyWithValue, pi and V (or acer's Q) heads over
-      cnn, cnn_small, conv_only or mlp, and the recurrent
-      RecurrentPolicyWithValue / RecurrentQPolicy over cnn_lstm,
-      cnn_lnlstm or lstm;
+      cnn, cnn_small, conv_only, mlp, cnn_im2col or cnn_coutpad, and
+      the recurrent RecurrentPolicyWithValue / RecurrentQPolicy over
+      cnn_lstm, cnn_lnlstm or lstm;
     - ``dueling_q:<trunk>``: deepq's dueling QNetwork; ``q:<trunk>``: its
       non-dueling form, whose two Dense layers have pi_v's names and are
       told apart by shape (``_dense_pair``);
@@ -305,6 +327,10 @@ def state_dict_template(state_dict: dict) -> str:
             "dueling_q" if "val_hidden.weight" in keys else "q")
     recurrent = "trunk.cell.ih.weight" in keys
     pre = "trunk.base." if recurrent else "trunk."
+    if not recurrent and "trunk.conv_0.weight" in keys:
+        return f"{head}:cnn_im2col"
+    if not recurrent and "trunk.c1.weight" in keys:
+        return f"{head}:cnn_coutpad"
     if f"{pre}layers.0.weight" in keys:
         base = "mlp"
     elif f"{pre}conv2.weight" in keys:
@@ -340,6 +366,9 @@ def _layers(template: str, n_mlp: int) -> list:
     if base == "mlp":
         out = [(fp + (f"Dense_{i}",), f"{sp}layers.{i}", "dense")
                for i in range(n_mlp)]
+    elif base in _VARIANT_TRUNKS:
+        out = [(fp + path, sp + name, kind)
+               for path, name, kind in _VARIANT_TRUNKS[base][1]]
     else:
         n, fc = _CONV_TRUNKS[base]
         out = [(fp + (f"Conv_{i}",), f"{sp}conv{i}", "conv")
@@ -412,7 +441,7 @@ def params_from_flax(tree: dict) -> dict:
                          else ("trunk",)))
     sd, c = {}, None
     for path, name, kind in _layers(template, n_mlp):
-        d = _get(p, path)
+        d = None if kind in _FLAT_KINDS else _get(p, path)
         if kind == "lstm":
             _leaf(d, {f"{s}{g}" for s in "ih" for g in _GATES}, path)
             for g in _GATES:
@@ -429,10 +458,18 @@ def params_from_flax(tree: dict) -> dict:
             _leaf(d, {"scale", "bias"}, path)
             sd[f"{name}.weight"], sd[f"{name}.bias"] = d["scale"], d["bias"]
             continue
-        _leaf(d, {"kernel", "bias"}, path)
+        if kind in _FLAT_KINDS:
+            parent = _get(p, path[:-1])
+            d = {"kernel": parent[f"{path[-1]}_kernel"],
+                 "bias": parent[f"{path[-1]}_bias"]}
+        else:
+            _leaf(d, {"kernel", "bias"}, path)
         k = d["kernel"]
-        if kind == "conv":
+        if kind in ("conv", "conv_flat"):
             k = np.transpose(k, (3, 2, 0, 1))
+            c = k.shape[0]
+        elif kind == "im2col":
+            k = k.T
             c = k.shape[0]
         elif kind == "dense_chw":
             k = _hwc_to_chw(k, c).T
@@ -480,6 +517,13 @@ def params_to_flax(state_dict: dict, template: str | None = None) -> dict:
             continue
         w, b = sd[f"{name}.weight"], sd[f"{name}.bias"]
         used.update((f"{name}.weight", f"{name}.bias"))
+        if kind in _FLAT_KINDS:
+            kern = (w.T if kind == "im2col"
+                    else np.transpose(w, (2, 3, 1, 0)))
+            put(path[:-1] + (f"{path[-1]}_kernel",), kern)
+            put(path[:-1] + (f"{path[-1]}_bias",), b)
+            c = w.shape[0]
+            continue
         if kind == "layer_norm":
             put(path + ("scale",), w)
         elif kind == "conv":

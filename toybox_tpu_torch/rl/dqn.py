@@ -123,40 +123,87 @@ def make_replay(capacity: int, obs_shape, obs_dtype=torch.uint8,
                   dones=z(capacity, torch.bool), priorities=z(capacity, F32))
 
 
-def replay_add(rb: Replay, obs, next_obs, actions, rewards, dones) -> None:
+def replay_add(rb: Replay, obs, next_obs, actions, rewards, dones,
+               slots=None) -> None:
     """Insert a batch of transitions at the cursor, in place; each new
-    entry's priority is max(max priority, 1)."""
-    n, cap = obs.shape[0], rb.capacity
-    idx = (rb.cursor + torch.arange(n, device=rb.obs.device)) % cap
-    max_p = torch.clamp(rb.priorities.max(), min=1.0)
-    rb.obs[idx] = obs.to(rb.obs.dtype)
-    rb.next_obs[idx] = next_obs.to(rb.obs.dtype)
-    rb.actions[idx] = actions.long()
-    rb.rewards[idx] = rewards.to(F32)
-    rb.dones[idx] = dones
-    rb.priorities[idx] = max_p.expand(n)
-    rb.cursor = (rb.cursor + n) % cap
-    rb.size = min(rb.size + n, cap)
+    entry's priority is max(max priority, 1).
+
+    ``slots`` (a ``parallel.mesh.Block``) shards the ring on its capacity
+    axis over a mesh: ``rb`` holds this rank's slots, the cursor and the
+    size are the whole ring's (host ints, alike on every rank), and the
+    batch is this rank's env rows. Every rank's rows are gathered in rank
+    order (the one-process env order) and each lands on the rank that
+    holds its slot. Without ``slots`` the ring is one process's."""
+    from toybox_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce,
+                                                env_block)
+    if slots is None:
+        slots = env_block(None, rb.capacity)
+    mesh = slots.mesh
+    obs, next_obs, actions, rewards, dones = (
+        all_gather_rows(x, mesh) for x in (obs, next_obs, actions.long(),
+                                           rewards.to(F32), dones))
+    n = obs.shape[0]
+    max_p = torch.clamp(all_reduce(rb.priorities.max(), mesh, "max"),
+                        min=1.0)
+    for j0, j1, l0 in slots.runs(rb.cursor, n):
+        sl = slice(l0, l0 + j1 - j0)
+        rb.obs[sl] = obs[j0:j1].to(rb.obs.dtype)
+        rb.next_obs[sl] = next_obs[j0:j1].to(rb.obs.dtype)
+        rb.actions[sl] = actions[j0:j1]
+        rb.rewards[sl] = rewards[j0:j1]
+        rb.dones[sl] = dones[j0:j1]
+        rb.priorities[sl] = max_p
+    rb.cursor = (rb.cursor + n) % slots.n_global
+    rb.size = min(rb.size + n, slots.n_global)
 
 
 def replay_sample(rb: Replay, noise: torch.Tensor, alpha: float,
-                  beta: float):
+                  beta: float, slots=None):
     """(batch, idx, weights): ``noise`` [batch, cap] standard Gumbel
     noise picks each row as argmax(alpha * log p + noise) over the filled
     region (proportional to p ** alpha, with replacement); the importance
     weights (size * P(i)) ** -beta are divided by their max. batch is
-    (obs, actions, rewards, next_obs, dones)."""
-    cap = rb.capacity
-    valid = torch.arange(cap, device=noise.device) < rb.size
+    (obs, actions, rewards, next_obs, dones).
+
+    Over a ring sharded by ``slots`` (``replay_add``) ``noise`` is the
+    whole ring's draw, alike on every rank. Each rank takes the argmax
+    over its own slots; a gather of every rank's winners picks the global
+    one (the first rank on a tie, as one argmax takes the first slot),
+    and its owner supplies the row. The log-normaliser of the priorities
+    is reduced over every slot. The result is the same on every rank."""
+    from toybox_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce,
+                                                env_block)
+    if slots is None:
+        slots = env_block(None, rb.capacity)
+    mesh, lo = slots.mesh, slots.lo
+    dev = noise.device
+    valid = lo + torch.arange(slots.n_local, device=dev) < rb.size
     logits = alpha * torch.log(torch.clamp(rb.priorities, min=1e-8))
     logits = torch.where(valid, logits, torch.full_like(logits,
                                                         -float("inf")))
-    idx = torch.argmax(logits[None, :] + noise, dim=-1)
-    p = torch.exp(logits - torch.logsumexp(logits, 0))
-    w = (float(max(rb.size, 1)) * torch.clamp(p[idx], min=1e-12)) ** -beta
+    scores = logits[None, :] + slots.take(noise, 1)
+    best = torch.argmax(scores, dim=-1)
+    won = scores.gather(1, best[:, None])[:, 0]
+    owner = torch.argmax(all_gather_rows(won[None], mesh), dim=0)
+    idx = all_gather_rows((best + lo)[None], mesh).gather(
+        0, owner[None])[0]
+    lse_local = torch.logsumexp(logits, 0)
+    m = all_reduce(lse_local, mesh, "max")
+    lse = m + torch.log(all_reduce(torch.exp(lse_local - m), mesh))
+    mine = owner == mesh.rank
+    rows = torch.where(mine, idx - lo, torch.zeros_like(idx))
+
+    def supply(x):
+        picked = x[rows]
+        keep = mine.view((-1,) + (1,) * (picked.dim() - 1))
+        return all_reduce(torch.where(keep, picked,
+                                      torch.zeros_like(picked)), mesh)
+
+    p = torch.exp(supply(logits) - lse)
+    w = (float(max(rb.size, 1)) * torch.clamp(p, min=1e-12)) ** -beta
     w = w / w.max()
-    batch = (rb.obs[idx], rb.actions[idx], rb.rewards[idx],
-             rb.next_obs[idx], rb.dones[idx])
+    batch = (supply(rb.obs), supply(rb.actions), supply(rb.rewards),
+             supply(rb.next_obs), supply(rb.dones))
     return batch, idx, w
 
 
@@ -226,7 +273,7 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
              prioritized_replay_alpha=0.6, prioritized_replay_beta0=0.4,
              dueling=True, double_q=True, grad_norm_clipping=10.0,
              param_noise=False, param_noise_scale0=0.01,
-             network_kwargs=None, device="cuda"):
+             network_kwargs=None, device="cuda", mesh=None):
     """Build (init_fn, cycle, module) over a batched env whose tensors lie
     on ``device``:
 
@@ -242,9 +289,25 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
       before them; ``optimize(state, t_before, draws=None)`` the rest
       (draws: ``gumbel`` [batch_size, buffer_size] and, with param_noise,
       ``adapt_noise``);
-    - module: the online QNetwork."""
+    - module: the online QNetwork.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) ``env_fns`` holds this
+    rank's block of the mesh's envs (built with ``seed_stride`` = all of
+    them) and the ring is sharded on its capacity axis, ``buffer_size`` /
+    ranks slots a rank (``replay_add``, ``replay_sample``). Every draw is
+    made for the whole env set and ring, alike on every rank, and each
+    rank takes its block; the sampled batch is the same on every rank, so
+    the learning step runs replicated. A cycle is then the single ring's
+    cycle: the same sampled slots, the params up to the order of sums."""
+    from toybox_tpu_torch.parallel.mesh import env_block
     dev = torch.device(device)
     num_envs, nact = env_fns.num_envs, env_fns.num_actions
+    envs = env_block(mesh, num_envs)
+    n_all, ranks = envs.n_global, envs.mesh.size
+    if buffer_size % ranks:
+        raise ValueError(f"a ring of {buffer_size} does not split over "
+                         f"{ranks} ranks")
+    slots = env_block(mesh, buffer_size // ranks)
     obs_shape = tuple(env_fns.obs_shape)
     kw = network_kwargs or {}
 
@@ -276,14 +339,14 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
         target.load_state_dict(cpu.state_dict())
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        seeds = torch.randint(0, 2**31 - 1, (num_envs,), generator=gen,
-                              device=dev)
+        seeds = envs.take(torch.randint(0, 2**31 - 1, (n_all,),
+                                        generator=gen, device=dev))
         env_state, _ = env_fns.reset(seeds)
         return DQNState(
             module=module, target=target,
             adam=ppo.AdamState.zeros_like(list(module.parameters())),
             env_state=env_state,
-            replay=make_replay(buffer_size, obs_shape,
+            replay=make_replay(slots.n_local, obs_shape,
                                env_state.frames.dtype, dev),
             generator=gen,
             pn_scale=torch.full((), param_noise_scale0, dtype=F32,
@@ -295,10 +358,12 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
         if draws is None:
             draws = ({"act_noise": normal_noise(net, gen)} if param_noise
                      else {"explore_u": torch.rand(
-                         (train_freq, num_envs), generator=gen, device=dev),
+                         (train_freq, n_all), generator=gen, device=dev),
                          "rand_actions": torch.randint(
-                             0, nact, (train_freq, num_envs), generator=gen,
+                             0, nact, (train_freq, n_all), generator=gen,
                              device=dev)})
+            if not param_noise:
+                draws = {k: envs.take(v, 1) for k, v in draws.items()}
         eps = epsilon(state.t)
         if param_noise:
             net = perturb(noisy, net, draws["act_noise"], state.pn_scale)
@@ -311,9 +376,9 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
             state.env_state, _, rewards, dones, _ = env_fns.step(
                 state.env_state, actions)
             replay_add(state.replay, obs, state.env_state.frames, actions,
-                       rewards, dones)
+                       rewards, dones, slots)
         t_before = state.t
-        state.t += train_freq * num_envs
+        state.t += train_freq * n_all
         return t_before
 
     def optimize(state: DQNState, t_before: int, draws: dict | None = None):
@@ -321,11 +386,11 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
         module, target = state.module, state.target
         dev = state.pn_scale.device
         if draws is None:
-            draws = {"gumbel": gumbel((batch_size, rb.capacity), gen, dev)}
+            draws = {"gumbel": gumbel((batch_size, buffer_size), gen, dev)}
             if param_noise:
                 draws["adapt_noise"] = normal_noise(module, gen)
         (bobs, bact, brew, bnext, bdone), idx, w = replay_sample(
-            rb, draws["gumbel"], alpha, beta(t))
+            rb, draws["gumbel"], alpha, beta(t), slots)
         q_sel = module(bobs).gather(1, bact[:, None])[:, 0]
         with torch.no_grad():
             q_next_t = target(bnext)
@@ -344,7 +409,7 @@ def make_dqn(env_fns, *, network="conv_only", lr=1e-4, gamma=0.99,
             if prioritized_replay:
                 # sampled with replacement: a slot drawn twice is written
                 # twice, both times with the same transition's |td|
-                rb.priorities[idx] = td.abs() + 1e-6
+                slots.scatter(rb.priorities, idx, td.abs() + 1e-6)
         if t // target_network_update_freq != \
                 t_before // target_network_update_freq:
             target.load_state_dict(module.state_dict())
@@ -436,3 +501,30 @@ def learn(*, env=None, game="breakout", num_envs=4, total_timesteps=100_000,
     if save_path is not None:
         ppo.save_params(save_path, module)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank dry run (the port's parallel.dryrun.dryrun_multichip)
+# ---------------------------------------------------------------------------
+
+def dryrun(n_devices: int, game: str = "breakout", device="cuda",
+           sharded: bool = True):
+    """One full DQN cycle on tiny shapes (2 envs a rank, a ring of 16
+    slots a rank, cnn_small, batch 8, train_freq 2, learning from the
+    start, prioritized, dueling, double Q), the ring sharded on its
+    capacity axis over a mesh of the process group's ``n_devices`` ranks
+    (``sharded``), or the same cycle in one process without a mesh. The
+    env is built as the JAX dryrun builds it (``make_rl_env`` at 84).
+    Returns (state, metrics)."""
+    from toybox_tpu_torch.parallel.dryrun import dryrun_mesh
+    full_f32()
+    mesh = dryrun_mesh(n_devices, sharded)
+    ranks = mesh.size if sharded else 1
+    env_fns = make_rl_env(game, 2 * n_devices // ranks, frame_size=84,
+                          seed_stride=2 * n_devices, device=device)
+    init_fn, cycle, _ = make_dqn(
+        env_fns, network="cnn_small", buffer_size=16 * n_devices,
+        batch_size=8, train_freq=2, learning_starts=0, total_timesteps=64,
+        prioritized_replay=True, dueling=True, double_q=True,
+        device=device, mesh=mesh)
+    return cycle(init_fn(0))

@@ -1,6 +1,7 @@
 """Policy trunks (port of toybox_tpu.rl.models: ``NatureCNN``,
-``SmallCNN``, ``ConvOnly``, ``MLP`` and ``LSTMTrunk``, in a name registry
-as the JAX package keeps them).
+``SmallCNN``, ``ConvOnly``, ``MLP``, ``LSTMTrunk`` and the two layout
+variants of NatureCNN, ``Im2ColCNN`` and ``CoutPadCNN``, in a name
+registry as the JAX package keeps them).
 
 Each trunk takes the observation as the JAX package lays it out (NHWC
 images, flat vectors) and returns f32[N, latent]. Convolutions run in
@@ -117,6 +118,86 @@ class ConvOnly(ConvStack):
                  width: int = 84, dtype=torch.float32):
         super().__init__(NATURE_CONVS, in_channels, height, width, None,
                          dtype)
+
+
+class Im2ColCNN(nn.Module):
+    """JAX's cnn_im2col: NatureCNN with its first conv written as an
+    im2col, the stride-4 8x8 windows laid out from pairs of adjacent
+    4-blocks in JAX's (kh, kw, c) window order, times ``conv1`` (a Linear
+    of 8 * 8 * c inputs: flax's ``conv1_kernel`` transposed), then the
+    two other convs (``conv_0``, ``conv_1``, flax's ``Conv_0``,
+    ``Conv_1``) and the Dense of 512. Its function is NatureCNN's up to
+    the order of the first contraction; its params are not a cnn
+    checkpoint's. Frames whose sides are multiples of 4."""
+
+    def __init__(self, in_channels: int = 4, height: int = 84,
+                 width: int = 84, dtype=torch.float32):
+        super().__init__()
+        self.dtype = as_dtype(dtype)
+        if height % 4 or width % 4:
+            raise ValueError(f"cnn_im2col: {height}x{width} is not made of "
+                             "4x4 blocks")
+        self.conv1 = nn.Linear(8 * 8 * in_channels, 32)
+        h, w = height // 4 - 1, width // 4 - 1
+        self.conv_0 = nn.Conv2d(32, 64, 4, stride=2)
+        h, w = _conv_out(h, 4, 2), _conv_out(w, 4, 2)
+        self.conv_1 = nn.Conv2d(64, 64, 3, stride=1)
+        h, w = _conv_out(h, 3, 1), _conv_out(w, 3, 1)
+        self.fc = nn.Linear(64 * h * w, 512)
+        self.latent = 512
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _norm_obs(x, self.dtype)                  # NHWC
+        n, h, w, c = x.shape
+        a = x.reshape(n, h // 4, 4, w // 4, 4, c)
+        b = torch.cat([a[:, :-1], a[:, 1:]], dim=2)   # [n, h', 8, w/4, 4, c]
+        p = torch.cat([b[:, :, :, :-1], b[:, :, :, 1:]], dim=4)
+        hb, wb = h // 4 - 1, w // 4 - 1
+        p = p.permute(0, 1, 3, 2, 4, 5).reshape(n, hb, wb, 8 * 8 * c)
+        x = torch.relu(_apply(self.conv1, p)).permute(0, 3, 1, 2)
+        x = torch.relu(_apply(self.conv_0, x))
+        x = torch.relu(_apply(self.conv_1, x))
+        return torch.relu(_apply(self.fc, x.flatten(1))).to(torch.float32)
+
+
+class CoutPadConv(nn.Conv2d):
+    """A VALID convolution whose output channels are padded with zero
+    kernels to ``lanes`` and sliced back before the bias, as JAX's
+    cnn_coutpad computes each conv: the same values as the plain conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int, lanes: int = 128):
+        super().__init__(in_channels, out_channels, kernel, stride=stride)
+        self.lanes = lanes
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, self.lanes - w.shape[0]))
+        y = F.conv2d(x, w, None, self.stride)[:, :self.out_channels]
+        return y + self.bias.to(x.dtype)[:, None, None]
+
+
+class CoutPadCNN(nn.Module):
+    """JAX's cnn_coutpad: NatureCNN with every conv's output channels
+    padded to 128 and sliced back (``c1``, ``c2``, ``c3``: flax's
+    ``c<i>_kernel`` HWIO and ``c<i>_bias``), then the Dense of 512."""
+
+    def __init__(self, in_channels: int = 4, height: int = 84,
+                 width: int = 84, dtype=torch.float32):
+        super().__init__()
+        self.dtype = as_dtype(dtype)
+        h, w, c = height, width, in_channels
+        for i, (ch, k, s) in enumerate(NATURE_CONVS):
+            setattr(self, f"c{i + 1}", CoutPadConv(c, ch, k, s))
+            h, w, c = _conv_out(h, k, s), _conv_out(w, k, s), ch
+        self.fc = nn.Linear(c * h * w, 512)
+        self.latent = 512
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _norm_obs(x.permute(0, 3, 1, 2), self.dtype)
+        for i in range(1, 4):
+            x = torch.relu(getattr(self, f"c{i}")(x))
+        return torch.relu(_apply(self.fc, x.flatten(1))).to(torch.float32)
 
 
 class MLP(nn.Module):
@@ -248,6 +329,16 @@ def cnn_small(obs_shape, **kwargs):
     return SmallCNN(*_hwc(obs_shape), **kwargs)
 
 
+@register("cnn_im2col")
+def cnn_im2col(obs_shape, **kwargs):
+    return Im2ColCNN(*_hwc(obs_shape), **kwargs)
+
+
+@register("cnn_coutpad")
+def cnn_coutpad(obs_shape, **kwargs):
+    return CoutPadCNN(*_hwc(obs_shape), **kwargs)
+
+
 @register("conv_only")
 def conv_only(obs_shape, **kwargs):
     return ConvOnly(*_hwc(obs_shape), **kwargs)
@@ -283,8 +374,8 @@ def network_factory(name: str):
         return NETWORKS[name]
     except KeyError:
         raise ValueError(
-            f"unknown network {name!r}; the port has {sorted(NETWORKS)} "
-            "(cnn_im2col and cnn_coutpad are not ported yet)") from None
+            f"unknown network {name!r}; the port has "
+            f"{sorted(NETWORKS)}") from None
 
 
 def get_network_builder(name):

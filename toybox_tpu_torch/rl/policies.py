@@ -57,18 +57,26 @@ def expected_q(logits: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return (torch.softmax(logits, -1) * q).sum(-1)
 
 
-def noise_step(forward, noise=None):
+def noise_step(forward, noise=None, rows=None):
     """A rollout step_fn(obs, generator) -> (actions, values, neglogps,
     logits) over ``forward(obs) -> (logits, values)``, without gradients:
     actions are argmax(logits + g), a categorical draw, g the next of
     ``noise`` (an iterator of Gumbel noise a caller hands in, as the tests
-    do with JAX's draws) or else Gumbel noise from ``generator``."""
+    do with JAX's draws) or else Gumbel noise from ``generator``. With
+    ``rows`` (a ``parallel.mesh.Block`` of the env axis) the noise is
+    drawn for every env of the mesh and this rank takes its block's rows,
+    so that the draw is the single-process draw's."""
 
     @torch.no_grad()
     def step_fn(obs: torch.Tensor, generator: torch.Generator):
         logits, values = forward(obs)
-        g = (next(noise) if noise is not None else
-             gumbel(logits.shape, generator, logits.device, logits.dtype))
+        if noise is not None:
+            g = next(noise)
+        elif rows is not None:
+            g = rows.take(gumbel((rows.n_global,) + tuple(logits.shape[1:]),
+                                 generator, logits.device, logits.dtype))
+        else:
+            g = gumbel(logits.shape, generator, logits.device, logits.dtype)
         actions = gumbel_max(logits, g)
         return actions, values, CategoricalPd(logits).neglogp(actions), \
             logits

@@ -23,6 +23,7 @@ each minibatch's rows from it.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -34,7 +35,8 @@ from toybox_tpu_torch.regress import full_f32
 from toybox_tpu_torch.rl.checkpoint import (load_flax_tree, params_from_flax,
                                             params_to_flax, save_flax_tree)
 from toybox_tpu_torch.rl.distributions import pd_from_logits
-from toybox_tpu_torch.rl.policies import RECURRENT_NETWORKS, build_policy
+from toybox_tpu_torch.rl.policies import (RECURRENT_NETWORKS, build_policy,
+                                          noise_step)
 from toybox_tpu_torch.utils.checkpoint import Checkpointer
 
 F32 = torch.float32
@@ -201,28 +203,33 @@ def normalize(advs: torch.Tensor) -> torch.Tensor:
 
 
 def ppo_loss(module, mb, clipr: float, ent_coef: float, vf_coef: float,
-             num_actions: int, normalize_adv: bool = True):
+             num_actions: int, normalize_adv: bool = True, mean=None):
     """(loss, metrics) of a minibatch (obs, actions, old values, old
-    neglogps, returns, advantages), as the JAX ``_loss``."""
+    neglogps, returns, advantages), as the JAX ``_loss``. ``mean`` takes
+    the place of each per-row mean (a rank's share of a minibatch spread
+    over a mesh: its rows' sum over the minibatch's size)."""
     obs, actions, old_values, old_neglogps, returns, advs = mb
+    if mean is None:
+        def mean(x):
+            return x.mean()
     logits, vpred = module(obs)
     pd = pd_from_logits(num_actions, logits)
     neglogp = pd.neglogp(actions)
-    entropy = pd.entropy().mean()
+    entropy = mean(pd.entropy())
 
     vpredclipped = old_values + torch.clamp(vpred - old_values, -clipr, clipr)
-    vf_loss = 0.5 * torch.maximum(torch.square(vpred - returns),
-                                  torch.square(vpredclipped - returns)).mean()
+    vf_loss = 0.5 * mean(torch.maximum(torch.square(vpred - returns),
+                                       torch.square(vpredclipped - returns)))
 
     ratio = torch.exp(old_neglogps - neglogp)
     if normalize_adv:
         advs = normalize(advs)
-    pg_loss = torch.maximum(
+    pg_loss = mean(torch.maximum(
         -advs * ratio,
-        -advs * torch.clamp(ratio, 1.0 - clipr, 1.0 + clipr)).mean()
+        -advs * torch.clamp(ratio, 1.0 - clipr, 1.0 + clipr)))
 
-    approxkl = 0.5 * torch.square(neglogp - old_neglogps).mean()
-    clipfrac = ((ratio - 1.0).abs() > clipr).to(F32).mean()
+    approxkl = 0.5 * mean(torch.square(neglogp - old_neglogps))
+    clipfrac = mean(((ratio - 1.0).abs() > clipr).to(F32))
     loss = pg_loss - entropy * ent_coef + vf_loss * vf_coef
     return loss, dict(policy_loss=pg_loss, value_loss=vf_loss,
                       policy_entropy=entropy, approxkl=approxkl,
@@ -240,49 +247,59 @@ class Hyper:
 
 
 def update(module, adam: AdamState, batch: tuple, perms: list, lrnow: float,
-           cliprnow: float, hp: Hyper, num_actions: int) -> dict:
+           cliprnow: float, hp: Hyper, num_actions: int, mesh=None) -> dict:
     """The minibatch epochs of one PPO update, in place on ``module`` and
     ``adam``. batch: flat [nbatch, ...] (obs, actions, values, neglogps,
     returns, advs); perms: one permutation of range(nbatch) per epoch.
     Returns the mean of each metric over every minibatch (detached
-    tensors)."""
+    tensors).
+
+    Each minibatch's advantages are normalised over the whole minibatch.
+    Its rows are then split into equal shares, one for each rank of
+    ``mesh`` (the whole minibatch for one process), and each share into
+    ``hp.microbatches`` chunks; each chunk's per-row means become its
+    rows' sums over the minibatch's size, so that one all-reduce of the
+    summed gradients and metrics gives the minibatch's mean, the same on
+    every rank. The clip and Adam act on that gradient, so the update is
+    the one-process update up to the order of its sums. Every rank of a
+    mesh holds the whole batch (``make_ppo`` gathers it)."""
+    from toybox_tpu_torch.parallel.mesh import SINGLE, all_reduce_tensors
+    mesh = SINGLE if mesh is None else mesh
     params = [p for p in module.parameters()]
     nbatch = batch[0].shape[0]
     mbsize = nbatch // hp.nminibatches
-    ubsize = mbsize // hp.microbatches
+    share = mbsize // mesh.size
+    ubsize = share // hp.microbatches
     sums = {k: torch.zeros((), device=batch[1].device) for k in METRICS}
+
+    def mean(x):
+        return x.sum() / mbsize
+
     for perm in perms:
         for i in range(hp.nminibatches):
             idx = perm[i * mbsize:(i + 1) * mbsize]
-            if hp.microbatches == 1:
-                mb = tuple(x[idx] for x in batch)
-                loss, metrics = ppo_loss(module, mb, cliprnow, hp.ent_coef,
-                                         hp.vf_coef, num_actions)
-                grads = torch.autograd.grad(loss, params)
-            else:
-                # normalise over the FULL minibatch, then average equal
-                # chunks' gradients (the mean of chunk means is the mean)
-                mb_advs = normalize(batch[-1][idx])
-                grads, metrics = None, None
-                for j in range(hp.microbatches):
-                    sl = slice(j * ubsize, (j + 1) * ubsize)
-                    ub = (tuple(x[idx[sl]] for x in batch[:-1])
-                          + (mb_advs[sl],))
-                    loss, m = ppo_loss(module, ub, cliprnow, hp.ent_coef,
-                                       hp.vf_coef, num_actions,
-                                       normalize_adv=False)
-                    g = torch.autograd.grad(loss, params)
-                    grads = g if grads is None else [
-                        a + b for a, b in zip(grads, g)]
-                    metrics = m if metrics is None else {
-                        k: metrics[k] + m[k] for k in m}
-                inv = 1.0 / hp.microbatches
-                grads = [g * inv for g in grads]
-                metrics = {k: v * inv for k, v in metrics.items()}
-            grads = clip_by_global_norm(list(grads), hp.max_grad_norm)
+            mb_advs = normalize(batch[-1][idx])
+            grads, metrics = None, None
+            for j in range(hp.microbatches):
+                sl = slice(mesh.rank * share + j * ubsize,
+                           mesh.rank * share + (j + 1) * ubsize)
+                ub = (tuple(x[idx[sl]] for x in batch[:-1])
+                      + (mb_advs[sl],))
+                loss, m = ppo_loss(module, ub, cliprnow, hp.ent_coef,
+                                   hp.vf_coef, num_actions,
+                                   normalize_adv=False, mean=mean)
+                g = torch.autograd.grad(loss, params)
+                grads = g if grads is None else [
+                    a + b for a, b in zip(grads, g)]
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in m}
+            *grads, msum = all_reduce_tensors(
+                list(grads) + [torch.stack([metrics[k].detach()
+                                            for k in METRICS])], mesh)
+            grads = clip_by_global_norm(grads, hp.max_grad_norm)
             adam_update(params, grads, adam, lrnow)
-            for k in METRICS:
-                sums[k] += metrics[k].detach()
+            for k, v in zip(METRICS, msum):
+                sums[k] += v
     n = len(perms) * hp.nminibatches
     return {k: v / n for k, v in sums.items()}
 
@@ -298,17 +315,23 @@ def anneal(update_count: int, total_updates: int, lr: float,
     return float(f32(lr) * frac), float(f32(cliprange) * frac)
 
 
-def episode_metrics(buf: Rollout) -> dict:
+def episode_metrics(buf: Rollout, mesh=None) -> dict:
     """eprewmean, eplenmean (NaN without a finished episode), episodes and
-    mean_reward of a rollout, as the JAX train_step reports them."""
+    mean_reward of a rollout, as the JAX train_step reports them, over
+    every rank's rollout of ``mesh`` (one process's without one)."""
+    from toybox_tpu_torch.parallel.mesh import all_reduce
     done = ~torch.isnan(buf.ep_ret)
-    n = done.to(F32).sum()
-    nan = torch.full((), float("nan"), device=n.device)
     ret = torch.where(done, buf.ep_ret, torch.zeros_like(buf.ep_ret)).sum()
     length = torch.where(done, buf.ep_len, torch.zeros_like(buf.ep_len))
-    return dict(eprewmean=torch.where(n > 0, ret / n, nan),
-                eplenmean=torch.where(n > 0, length.sum().to(F32) / n, nan),
-                episodes=n, mean_reward=buf.rewards.mean())
+    sums = all_reduce(torch.stack([
+        done.to(F32).sum(), ret, length.sum().to(F32), buf.rewards.sum(),
+        torch.full((), float(buf.rewards.numel()), device=ret.device)]),
+        mesh)
+    n = sums[0]
+    nan = torch.full((), float("nan"), device=n.device)
+    return dict(eprewmean=torch.where(n > 0, sums[1] / n, nan),
+                eplenmean=torch.where(n > 0, sums[2] / n, nan),
+                episodes=n, mean_reward=sums[3] / sums[4])
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +378,7 @@ def make_ppo(env_fns, *, network="cnn", lr=2.5e-4, cliprange=0.1,
              nsteps=128, nminibatches=4, noptepochs=4, gamma=0.99,
              lam=0.95, ent_coef=0.01, vf_coef=0.5, max_grad_norm=0.5,
              total_updates=1, network_kwargs=None, microbatches=1,
-             device="cuda"):
+             device="cuda", mesh=None):
     """Build (init_fn, train_step, act_fn) over a batched env whose
     tensors lie on ``device``.
 
@@ -369,32 +392,46 @@ def make_ppo(env_fns, *, network="cnn", lr=2.5e-4, cliprange=0.1,
 
     ``microbatches`` splits each minibatch's gradient into that many
     chunks summed before the one Adam step (advantages normalised over the
-    full minibatch first), as the JAX package does to bound memory."""
+    full minibatch first), as the JAX package does to bound memory.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) ``env_fns`` holds this
+    rank's block of the mesh's envs (built with ``seed_stride`` = all of
+    them, so that its auto-resets reseed as one process's envs do), and
+    the update is the update of all of them, as one process would make it
+    (up to the order of sums): every random draw is made for the whole
+    env set, alike on every rank (the env seeds and the Gumbel noise of
+    each step, whose rows of this block the rank takes, and each epoch's
+    permutation); the rollout is gathered onto every rank, and each rank
+    takes its share of every minibatch (``update``)."""
+    from toybox_tpu_torch.parallel.mesh import all_gather_rows, env_block
     if network in RECURRENT_NETWORKS:
         raise ValueError(f"recurrent network {network!r}: use "
                          "ppo_recurrent.make_recurrent_ppo (learn "
                          "dispatches to it)")
     num_envs = env_fns.num_envs
-    nbatch = num_envs * nsteps
-    if nbatch % nminibatches or (nbatch // nminibatches) % microbatches:
+    envs = env_block(mesh, num_envs)
+    nbatch = envs.n_global * nsteps
+    if nbatch % nminibatches or (nbatch // nminibatches) % (
+            envs.mesh.size * microbatches):
         raise ValueError(f"{nbatch} samples do not split into "
-                         f"{nminibatches} minibatches of {microbatches} "
-                         "equal chunks")
+                         f"{nminibatches} minibatches of "
+                         f"{envs.mesh.size} x {microbatches} equal chunks")
     dev = torch.device(device)
     hp = Hyper(nminibatches=nminibatches, microbatches=microbatches,
                ent_coef=ent_coef, vf_coef=vf_coef,
                max_grad_norm=max_grad_norm)
-    module, p_init, p_step, p_value = build_policy(
+    module, p_init, _, p_value = build_policy(
         env_fns.obs_shape, env_fns.num_actions, network, device=dev,
         **(network_kwargs or {}))
+    p_step = noise_step(module, rows=envs)      # a discrete action space
     storage = {}
 
     def init_fn(seed: int = 0) -> PPOState:
         p_init(seed)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        seeds = torch.randint(0, 2**31 - 1, (num_envs,), generator=gen,
-                              device=dev)
+        seeds = envs.take(torch.randint(0, 2**31 - 1, (envs.n_global,),
+                                        generator=gen, device=dev))
         env_state, _ = env_fns.reset(seeds)
         return PPOState(module=module,
                         adam=AdamState.zeros_like(list(module.parameters())),
@@ -414,7 +451,8 @@ def make_ppo(env_fns, *, network="cnn", lr=2.5e-4, cliprange=0.1,
                    lam)
         returns = advs + buf.values
 
-        def flat(x):
+        def flat(x):        # [nsteps, envs of every rank, ...] flattened
+            x = all_gather_rows(x, mesh, dim=1)
             return x.reshape((nbatch,) + tuple(x.shape[2:]))
 
         return tuple(map(flat, (buf.obs, buf.actions, buf.values,
@@ -428,8 +466,8 @@ def make_ppo(env_fns, *, network="cnn", lr=2.5e-4, cliprange=0.1,
         perms = [torch.randperm(nbatch, generator=state.generator,
                                 device=dev) for _ in range(noptepochs)]
         metrics = update(module, state.adam, batch, perms, lrnow, cliprnow,
-                         hp, env_fns.num_actions)
-        metrics.update(episode_metrics(buf))
+                         hp, env_fns.num_actions, mesh)
+        metrics.update(episode_metrics(buf, mesh))
         state.update += 1
         return state, metrics
 
@@ -459,10 +497,20 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
     (PERF.md); Gridworld's frames take the plain render and the matmul
     warp. TF32 is turned off, as the JAX reference computes in f32. A
     recurrent network (lstm, cnn_lstm, cnn_lnlstm) trains with
-    ``ppo_recurrent.learn``, as in JAX."""
-    if mesh is not None:
-        raise NotImplementedError("mesh=: the distributed layer is not "
-                                  "ported yet (ROADMAP.md §1)")
+    ``ppo_recurrent.learn``, as in JAX.
+
+    ``mesh`` (``parallel.mesh.make_mesh`` over the process group) makes
+    the update data-parallel (``make_ppo``): ``num_envs`` counts the envs
+    of the whole mesh and each rank builds its block of them (an ``env``
+    handed in is this rank's block, built with ``seed_stride`` = the
+    mesh's env count); the params are broadcast from the
+    first rank (``replicate``); only the first rank saves, and each rank
+    checkpoints under ``rank<r>`` of ``checkpoint_path``. A recurrent
+    network under ``mesh`` raises ValueError: JAX routes it to
+    ``ppo_recurrent.learn``, which takes no mesh."""
+    if mesh is not None and network in RECURRENT_NETWORKS:
+        raise ValueError(f"mesh=: the recurrent network {network!r} trains "
+                         "with ppo_recurrent.learn, which takes no mesh")
     if network in RECURRENT_NETWORKS:
         from toybox_tpu_torch.rl.ppo_recurrent import learn as rlearn
         return rlearn(env=env, game=game, num_envs=num_envs,
@@ -478,10 +526,13 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
     if extra:
         raise TypeError(f"learn() got unexpected arguments {sorted(extra)}")
     full_f32()
+    ranks, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+    if env is None and num_envs % ranks:
+        raise ValueError(f"{num_envs} envs do not split over {ranks} ranks")
     env_fns = env if env is not None else make_rl_env(
-        game, num_envs, inkernel_warp=game in FRAME_KERNEL_GAMES,
-        device=device)
-    nbatch = env_fns.num_envs * nsteps
+        game, num_envs // ranks, inkernel_warp=game in FRAME_KERNEL_GAMES,
+        seed_stride=num_envs, device=device)
+    nbatch = env_fns.num_envs * ranks * nsteps
     fpstep = getattr(env_fns, "frames_per_step", 1)
     total_updates = max(int(total_timesteps) // (nbatch * fpstep), 1)
 
@@ -491,10 +542,15 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
         lam=lam, ent_coef=ent_coef, vf_coef=vf_coef,
         max_grad_norm=max_grad_norm, total_updates=total_updates,
         network_kwargs=network_kwargs, microbatches=microbatches,
-        device=device)
+        device=device, mesh=mesh)
     state = init_fn(seed)
     if load_path is not None:
         load_params(load_path, state.module)
+    if mesh is not None:
+        from toybox_tpu_torch.parallel.mesh import replicate
+        replicate(list(state.module.parameters()), mesh)
+        if checkpoint_path is not None and ranks > 1:
+            checkpoint_path = os.path.join(checkpoint_path, f"rank{rank}")
 
     ckpt = Checkpointer(checkpoint_path, checkpoint_freq)
     state = ckpt.restore(state)   # resume from the latest ckpt_<n> if any
@@ -516,7 +572,7 @@ def learn(*, env=None, game="breakout", num_envs=8, total_timesteps=10_000,
                 logger.logkv(f"loss/{k}" if k in METRICS else k, v)
             logger.dumpkvs()
         ckpt.maybe_save(state, update_count)
-    if save_path is not None:
+    if save_path is not None and rank == 0:
         save_params(save_path, state.module)
     return state
 
@@ -532,3 +588,31 @@ def load_params(path, module: torch.nn.Module) -> torch.nn.Module:
     ``save_params`` here) into the policy ``module``."""
     module.load_state_dict(params_from_flax(load_flax_tree(path)))
     return module
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank dry run (the port's parallel.dryrun.dryrun_multichip)
+# ---------------------------------------------------------------------------
+
+def dryrun(n_devices: int, game: str = "breakout", device="cuda",
+           sharded: bool = True):
+    """One full PPO update on tiny shapes (2 envs a rank, nsteps 4,
+    cnn_small), data-parallel over a mesh of the process group's
+    ``n_devices`` ranks (``sharded``), or without a mesh, the same update
+    of the same global env set in one process. The env is built as the
+    JAX dryrun builds it (``make_rl_env`` at 84, the fused max-pool kernel
+    and the matmul warp). Returns (state, metrics)."""
+    from toybox_tpu_torch.parallel.dryrun import dryrun_mesh
+    from toybox_tpu_torch.parallel.mesh import replicate
+    full_f32()
+    mesh = dryrun_mesh(n_devices, sharded)
+    ranks = mesh.size if sharded else 1
+    env_fns = make_rl_env(game, 2 * n_devices // ranks, frame_size=84,
+                          seed_stride=2 * n_devices, device=device)
+    init_fn, train_step, _ = make_ppo(env_fns, nsteps=4, nminibatches=2,
+                                      noptepochs=1, network="cnn_small",
+                                      device=device, mesh=mesh)
+    state = init_fn(0)
+    if mesh is not None:
+        replicate(list(state.module.parameters()), mesh)
+    return train_step(state)

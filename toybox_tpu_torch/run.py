@@ -13,7 +13,13 @@ deepq (alias dqn), acer (recurrent too), trpo (alias trpo_mpi) and gail
 It maps the env id onto the batched device envs (the game name from
 <Game>ToyboxNoFrameskip-v4), resolves the per-alg defaults, passes
 --key=value extras through to learn() as python literals, and plays the
-trained policy with --play. --save_path writes the policy as flax params,
+trained policy with --play. --multi_host joins the process group of a
+launcher (``torchrun``'s environment), offsets the seed by rank and logs
+and saves on rank 0 only; each process runs its own learn, as in JAX:
+
+    torchrun --nproc_per_node=N -m toybox_tpu_torch.run --multi_host ...
+
+--save_path writes the policy as flax params,
 which the JAX package's ``load_params`` reads. ddpg and her need a
 continuous-action or goal env, as in JAX: --alg=ddpg and --alg=her raise
 ValueError naming ``toybox_tpu_torch.rl.ddpg.learn`` and
@@ -104,6 +110,12 @@ def common_arg_parser():
     parser.add_argument("--log_path", type=str, default=None)
     parser.add_argument("--play", action="store_true", default=False)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument(
+        "--multi_host", action="store_true", default=False,
+        help="multi-process run under a launcher (torchrun): join its "
+             "process group, per-process env-seed blocks, rank-0-only "
+             "logging and saving (replaces the reference's mpi_fork/rank "
+             "plumbing, run.py:186-191 + cmd_util.py:28-33)")
     return parser
 
 
@@ -154,16 +166,39 @@ def get_learn_function(alg: str):
 def train(args, extra_kwargs):
     from toybox_tpu_torch.utils import logger
 
+    seed, rank0, device = args.seed, True, args.device
+    if args.multi_host:
+        # the launcher's environment names the rendezvous, the rank and
+        # the world size; on a host with several cards each process takes
+        # the card of its local rank (processes share a card on a host
+        # with fewer cards than processes)
+        import os
+
+        import torch.distributed as dist
+
+        from toybox_tpu_torch.parallel.mesh import (backend_for,
+                                                    initialize_distributed,
+                                                    process_seed_offset)
+        cards = torch.cuda.device_count()
+        if device == "cuda" and "LOCAL_RANK" in os.environ and cards > 1:
+            device = f"cuda:{int(os.environ['LOCAL_RANK']) % cards}"
+        initialize_distributed(backend=backend_for(device))
+        seed = process_seed_offset(seed, args.num_envs)
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
     game = env_id_to_game(args.env)
     learn, kwargs = get_learn_function(args.alg)
     kwargs.update(extra_kwargs)
     if args.network:
         kwargs["network"] = args.network
-    lg = logger.configure(dir=args.log_path)
+    # rank-0-only logging (reference run.py:186-191)
+    lg = logger.configure(dir=args.log_path if rank0 else None,
+                          format_strs=None if rank0 else [])
     state = learn(game=game, num_envs=args.num_envs,
-                  total_timesteps=int(args.num_timesteps), seed=args.seed,
-                  save_path=args.save_path, load_path=args.load_path,
-                  logger=logger, device=args.device, **kwargs)
+                  total_timesteps=int(args.num_timesteps), seed=seed,
+                  save_path=args.save_path if rank0 else None,
+                  load_path=args.load_path, logger=logger, device=device,
+                  **kwargs)
     return state, lg
 
 
@@ -220,9 +255,13 @@ def main(argv=None):
     args, unknown = parser.parse_known_args(argv)
     extra = parse_cmdline_kwargs(unknown)
     full_f32()
-    state, _ = train(args, extra)
-    if args.play:
-        play(args, state)
+    try:
+        state, _ = train(args, extra)
+        if args.play:
+            play(args, state)
+    finally:
+        if args.multi_host and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return state
 
 

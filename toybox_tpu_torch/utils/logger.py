@@ -1,8 +1,8 @@
 """kv logger (port of toybox_tpu.utils.logger): ``configure``, ``logkv``,
 ``logkv_mean``, ``dumpkvs``, ``log`` with its levels, ``get_dir`` and the
-``ProfileKV``/``profile`` timers, with the stdout, log, json and csv
-writers. The TensorBoard writer is not ported (ROADMAP.md §1: the surface
-layers).
+``ProfileKV``/``profile`` timers, with the stdout, log, json, csv and
+tensorboard writers (the last with ``torch.utils.tensorboard``, scalars
+only).
 
 Running means are kept as (sum, count) pairs and written as their mean.
 The CSV writer rewrites the file from its buffered rows when a new column
@@ -135,6 +135,30 @@ class CSVOutputFormat(KVWriter):
                 f.write(self._render(row))
 
 
+class TensorBoardOutputFormat(KVWriter):
+    """Scalar summaries in a tensorboard event file under ``logdir``
+    (``torch.utils.tensorboard``, which needs the ``tensorboard`` package:
+    without it the format raises ImportError, as JAX's does without
+    tensorflow); step = the count of ``writekvs`` calls."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+        os.makedirs(logdir, exist_ok=True)
+        self._writer = SummaryWriter(log_dir=logdir)
+        self._step = 0
+
+    def writekvs(self, kvs):
+        self._step += 1
+        for k, v in kvs.items():
+            v = _as_scalar(v)
+            if isinstance(v, float):
+                self._writer.add_scalar(k, v, global_step=self._step)
+        self._writer.flush()
+
+    def close(self):
+        self._writer.close()
+
+
 _WRITERS = {
     "stdout": lambda d, sfx: HumanOutputFormat(sys.stdout),
     "log": lambda d, sfx: HumanOutputFormat(os.path.join(d, f"log{sfx}.txt")),
@@ -142,13 +166,12 @@ _WRITERS = {
         os.path.join(d, f"progress{sfx}.json")),
     "csv": lambda d, sfx: CSVOutputFormat(
         os.path.join(d, f"progress{sfx}.csv")),
+    "tensorboard": lambda d, sfx: TensorBoardOutputFormat(
+        os.path.join(d, f"tb{sfx}")),
 }
 
 
 def make_output_format(fmt: str, ev_dir: str, log_suffix: str = ""):
-    if fmt == "tensorboard":
-        raise NotImplementedError("the tensorboard log format is not ported "
-                                  "yet (ROADMAP.md §1: the surface layers)")
     os.makedirs(ev_dir, exist_ok=True)
     try:
         factory = _WRITERS[fmt]

@@ -63,7 +63,8 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "port_op_counts.py",
                     ROOT / "scripts" / "frame_kernel_variants.py",
-                    ROOT / "scripts" / "port_gates.py"]
+                    ROOT / "scripts" / "port_gates.py",
+                    ROOT / "scripts" / "train_recipe.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

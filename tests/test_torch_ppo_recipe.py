@@ -17,6 +17,13 @@ form the port trains on) and the update at the recipe's annealing points.
   ``anneal(u, 228)`` fed JAX's rollout and permutations; params within
   0.4 % of one Adam step at that update's lr (1e-6 at lr 2.5e-4, as in
   tests/test_torch_ppo.py).
+- The update from a mid-run Adam state: JAX's state after two real
+  updates (non-zero moments), its update count set to 114 and 227 and
+  its Adam count to that update's count in the recipe (16 Adam steps an
+  update: 1 824 and 3 632, where the bias correction of the second
+  moment is 0.84 and 0.97), against the port's update from the moments
+  ``checkpoint.adam_from_optax`` carries over, fed JAX's rollout and
+  permutations from that state; the same bound.
 """
 
 import jax
@@ -31,11 +38,12 @@ from toybox_tpu.envs.pipeline import make_rl_env as j_make_rl_env
 from toybox_tpu.rl import ppo as jppo
 from toybox_tpu_torch.envs.pipeline import make_rl_env as t_make_rl_env
 from toybox_tpu_torch.rl import ppo
-from toybox_tpu_torch.rl.checkpoint import params_from_flax
+from toybox_tpu_torch.rl.checkpoint import adam_from_optax, params_from_flax
 from toybox_tpu_torch.rl.policies import build_policy, noise_step
 
 NENVS, NSTEPS, NMB, NEPOCHS = 4, 64, 2, 1
 TOTAL = 120_000_000 // (1024 * 128 * 4)          # the recipe's 228 updates
+ADAM_STEPS = 4 * 4                       # the recipe's minibatches x epochs
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +80,8 @@ def jax_recipe():
     _, _, ekey = jax.random.split(jax.random.PRNGKey(0), 3)
     seeds = jax.random.randint(ekey, (NENVS,), 0, 2**31 - 1)
     return dict(state0=state0, train_step=jax.jit(train_step),
-                inputs=_np_tree(replay(state0)), seeds=np.asarray(seeds))
+                replay=replay, inputs=_np_tree(replay(state0)),
+                seeds=np.asarray(seeds))
 
 
 def _port_policy(state0):
@@ -109,13 +118,14 @@ def test_training_rollout_matches_jax(jax_recipe):
     assert grey.max() <= 1
 
 
-@pytest.mark.parametrize("u", [TOTAL // 2, TOTAL - 1])
-def test_annealed_update_matches_jax(jax_recipe, u):
-    x = jax_recipe["inputs"]
-    state0 = jax_recipe["state0"].replace(update=jnp.asarray(u, jnp.int32))
+def _held_update(jax_recipe, state0, x, u, adam_of):
+    """JAX's train_step from ``state0`` (its update count set to ``u``)
+    against the port's ``ppo.update`` at ``anneal(u, TOTAL)`` from the
+    same params and the Adam state ``adam_of(state0, module)``, fed the
+    rollout and permutations ``x`` replayed from ``state0``."""
     state1, _ = jax_recipe["train_step"](state0)
     _, module = _port_policy(state0)
-    adam = ppo.AdamState.zeros_like(list(module.parameters()))
+    adam = adam_of(state0, module)
     t = {k: torch.tensor(v) for k, v in x.items()}
     returns = t["advs"] + t["values"]
     nbatch = NSTEPS * NENVS
@@ -137,3 +147,41 @@ def test_annealed_update_matches_jax(jax_recipe, u):
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0,
                                    atol=1e-6 * lrnow / 2.5e-4, err_msg=k)
+    return adam
+
+
+@pytest.mark.parametrize("u", [TOTAL // 2, TOTAL - 1])
+def test_annealed_update_matches_jax(jax_recipe, u):
+    state0 = jax_recipe["state0"].replace(update=jnp.asarray(u, jnp.int32))
+    _held_update(jax_recipe, state0, jax_recipe["inputs"], u,
+                 lambda _, m: ppo.AdamState.zeros_like(
+                     list(m.parameters())))
+
+
+@pytest.fixture(scope="module")
+def jax_mid_run(jax_recipe):
+    """JAX's state after two real updates from init_fn(0)."""
+    state = jax_recipe["state0"]
+    for _ in range(2):
+        state, _ = jax_recipe["train_step"](state)
+    return state
+
+
+@pytest.mark.parametrize("u", [TOTAL // 2, TOTAL - 1])
+def test_update_from_carried_adam_state_matches_jax(jax_recipe, jax_mid_run,
+                                                    u):
+    clip, adam, *rest = jax_mid_run.opt_state
+    assert type(adam).__name__ == "ScaleByAdamState" and int(adam.count) > 0
+    adam = adam._replace(count=jnp.asarray(u * ADAM_STEPS, adam.count.dtype))
+    state0 = jax_mid_run.replace(update=jnp.asarray(u, jnp.int32),
+                                 opt_state=(clip, adam, *rest))
+    x = _np_tree(jax_recipe["replay"](state0))
+
+    def carried(state, module):
+        got = adam_from_optax(_np_tree(state.opt_state[1]), module)
+        assert got.count == u * ADAM_STEPS
+        assert max(float(m.abs().max()) for m in got.mu) > 0
+        return got
+
+    got = _held_update(jax_recipe, state0, x, u, carried)
+    assert got.count == u * ADAM_STEPS + NMB * NEPOCHS

@@ -18,7 +18,9 @@ port's modules.
   convs carry their kernels as named params), deepq's QNetwork, dueling
   or not, acktr's KfacCNNPolicy in both its forms, and the LSTM
   trunks); it raises on a tree it does not know. ``params_to_flax`` is
-  its inverse on the ``params`` collection.
+  its inverse on the ``params`` collection. ``adam_from_optax`` carries an
+  optax ``scale_by_adam`` state over the same mapping into the port's
+  ``AdamState``, so that a run can be taken over mid-way.
 - ``dense_stack_from_flax`` and ``dense_stack_to_flax`` carry a tree of
   Dense layers only (GAIL's discriminator, DDPG's actor and critic) into
   and out of a module of ``layers``; JAX saves no such tree to a file.
@@ -33,8 +35,8 @@ import torch
 
 __all__ = ["unpackb", "packb", "load_flax_tree", "save_flax_tree",
            "flax_template", "state_dict_template", "params_from_flax",
-           "params_to_flax", "dense_stack_from_flax", "dense_stack_to_flax",
-           "load_state_dict"]
+           "params_to_flax", "adam_from_optax", "dense_stack_from_flax",
+           "dense_stack_to_flax", "load_state_dict"]
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 
@@ -538,6 +540,28 @@ def params_to_flax(state_dict: dict, template: str | None = None) -> dict:
         raise ValueError(f"state_dict entries not in the {found!r} "
                          f"template: {sorted(set(sd) - used)}")
     return {"params": p}
+
+
+def adam_from_optax(opt_state, module: torch.nn.Module):
+    """optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``: the step
+    count and two trees shaped as the params, numpy arrays) -> the port's
+    ``ppo.AdamState`` for ``module``: each moment mapped as
+    ``params_from_flax`` maps the params (the moments are elementwise, so
+    they move with their weights), listed in ``module.parameters()``
+    order on its device, and the count as an int."""
+    from toybox_tpu_torch.rl.ppo import AdamState
+    names = [n for n, _ in module.named_parameters()]
+    dev = next(module.parameters()).device
+
+    def moments(tree) -> list:
+        sd = params_from_flax(tree)
+        if set(sd) != set(names):
+            raise ValueError(f"the moments are a {sorted(sd)} tree, the "
+                             f"module has {sorted(names)}")
+        return [sd[n].to(dev) for n in names]
+
+    return AdamState(mu=moments(opt_state.mu), nu=moments(opt_state.nu),
+                     count=int(np.asarray(opt_state.count)))
 
 
 def dense_stack_from_flax(tree: dict) -> dict:

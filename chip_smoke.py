@@ -28,12 +28,17 @@ Phases, each printing one line per game with its own wall time:
      policy on cuda and on cpu: rewards equal, observations within 1 grey
      level, logits and values within 1e-4; the pipeline with
      inkernel_warp=True against False on the card: rewards, done and
-     lives equal, observations within 1 grey level;
+     lives equal, observations within 1 grey level; Breakout's training
+     pipeline (in-kernel warp, GAME_OVER_ENVS envs, one-life games) on
+     cuda and on cpu until 90 % of the envs have finished a game, every
+     engine field, reseed, frame stack, reward, done and finished game
+     equal after every step (scripts/train_path_vs_cpu.py's E1);
   5. serve (a main path): the committed PPO model through the regress
      entry point, 10 games for at most SERVE_STEPS agent steps, with the
      launch counts set to 0 just before and read just after; the game's
      frame kernels must have launched and the games must score;
-  6. throughput: 1024 envs x 100 pipeline steps with the policy;
+  6. throughput: THROUGHPUT_ENVS envs x THROUGHPUT_STEPS pipeline steps
+     with the policy;
   7. a short torch.profiler window at 10 and 1024 envs: device kernels
      and device busy time per agent step;
   8. train (the slice's main path): ``learn`` on make_rl_env(game, 1024,
@@ -45,7 +50,10 @@ Phases, each printing one line per game with its own wall time:
      train_step's collect and optimize halves timed apart, profiled (the
      warp kernel's device time a rollout step);
   9. one PPO update on cuda against cpu from the same params, batch and
-     permutations: params within UPDATE_ATOL;
+     permutations: params within UPDATE_ATOL; then UPDATE_TRAIN_STEPS
+     whole train_steps of make_ppo on each device, each collecting its
+     own rollout from the cpu's draws (scripts/train_path_vs_cpu.py's
+     E2): rollouts equal, flips near ties, params within UPDATE_ATOL;
  10. the identity learning test on the card (mlp, 16 envs, 60 updates):
      mean reward > 0.8;
  11. the CLI: ``toybox_tpu_torch.run.main`` trains one update at 64 envs
@@ -243,18 +251,26 @@ RECIPE = dict(network="cnn", nsteps=128, nminibatches=4, noptepochs=4,
               lr=2.5e-4, cliprange=0.1, gamma=0.99, lam=0.95,
               ent_coef=0.01)                 # run.ALG_DEFAULTS["ppo"]
 UPDATE_ENVS, UPDATE_STEPS, UPDATE_ATOL = 8, 8, 1e-5
+UPDATE_TRAIN_STEPS = 2            # phase 9: whole train_steps, cuda vs cpu
+# phase 4: Breakout's training pipeline past game overs (one-life games),
+# at least the first many agent steps, at most the second
+GAME_OVER_ENVS, GAME_OVER_STEPS = 128, (40, 150)
 CLI_ENVS, CLI_UPDATES = 64, 1
 WARP = 84
-THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 50
-ENGINE_ENVS, ENGINE_STEPS = 256, 200
+THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 30
+ENGINE_ENVS, ENGINE_STEPS = 256, 150
+AMIDAR_ENGINE_STEPS = 400     # its one-life games end only after ~300 steps
 PIPELINE_ENVS, PIPELINE_STEPS = 10, 20
-PROFILE_STEPS = 3
+PROFILE_STEPS = 2
 BEHAVIOR_ENVS, BEHAVIOR_FRAMES = (SERVE_GAMES, 256), 40
 GATE_EPISODES, GATE_MAX_FRAMES = 2, 128
 HEADS_N, HEADS_T, HEADS_DONE_AT, HEADS_ATOL = 32, 8, 4, 1e-4
 HEADS_GAMES, HEADS_STEPS, ADAPTER_FRAMES = 10, 8, 16
 KERNEL_ENVS = (SERVE_GAMES, 256, THROUGHPUT_ENVS)
-# the depths of phases 4, 14 and 15 (engine, pipeline and exact steps), of
+# the depths of phases 4, 14 and 15 (engine, pipeline and exact steps; the
+# engine's Breakout and Space Invaders runs cut from 200 to 150 steps, phase
+# 6's from 50 to 30 and phase 7's windows from 3 to 2 steps when phases 4
+# and 9 took on the training path's game overs and train_steps), of
 # phase 5's serve, phase 6's throughput, phase 7's profile windows, phase
 # 12's gate, phase 13's serve chunks and phase 16's extraction, of phase
 # 8's and phase 11's updates and of the learner runs of phases 18 and 19
@@ -765,7 +781,7 @@ def engine_phase(g: Game) -> str:
         seeds, device=d))[0], d) for d, env in envs.items()}
     n_act = envs["cpu"].num_actions
     r = np.random.default_rng(7)
-    steps = 2 * ENGINE_STEPS if g.name == "amidar" else ENGINE_STEPS
+    steps = AMIDAR_ENGINE_STEPS if g.name == "amidar" else ENGINE_STEPS
     n_done = 0
     for i in range(steps):
         a = r.integers(0, n_act, size=ENGINE_ENVS)
@@ -989,6 +1005,43 @@ def warp_pipeline_phase(g: Game) -> str:
             f"{worst}, {differ} of {total} obs pixels differ")
 
 
+def _train_path():
+    """scripts/train_path_vs_cpu.py, the card's training path against the
+    cpu's (its E1 and E2 at the sizes of phases 4 and 9)."""
+    import importlib.util
+    name = "train_path_vs_cpu"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "scripts" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module        # dataclasses look it up there
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def game_over_phase() -> str:
+    """Breakout's training pipeline (make_rl_env on the in-kernel warp,
+    seed_stride = its envs, as ppo.learn builds it) on cuda and on cpu
+    from the seeds of the cpu's init_fn(0), one-life games, the same
+    random actions (FIRE often) until 90 % of the envs have finished a
+    game: every engine field, the reseeds, the frame stack, lives,
+    rewards, dones and the finished games equal after every step."""
+    tp = _train_path()
+    lo, hi = GAME_OVER_STEPS
+    r = tp.e1("random", "kernel", GAME_OVER_ENVS, lo, hi, DEV, "cpu",
+              lives=1, log=lambda s: None)
+    check(r["first_difference"] is None,
+          f"the training pipeline differs between cuda and cpu: "
+          f"{r['first_difference']}")
+    check(r["game_overs"] > 0, "no breakout game ended in the training "
+                               "pipeline run")
+    return (f"breakout training pipeline (in-kernel warp, one-life games) "
+            f"{r['envs']} envs x {r['steps']} steps, cuda vs cpu equal "
+            f"(engine, reseeds, stack, rewards, dones, games); "
+            f"{r['game_overs']} game overs, {r['share_with_game_over']:.3f} "
+            f"of the envs")
+
+
 class _Rows:
     """A logger for ``learn``: one dict per update, stamped with the host
     clock when the update's metrics were read (learn reads them as
@@ -1163,6 +1216,28 @@ def update_phase() -> str:
             f"minibatches: params moved up to {moved:.3g}, cuda vs cpu max "
             f"diff {diff:.3g} (tolerance {UPDATE_ATOL:g}); metrics max diff "
             f"{mdiff:.3g}")
+
+
+def train_step_phase() -> str:
+    """UPDATE_TRAIN_STEPS whole train_steps of make_ppo at UPDATE_ENVS x
+    UPDATE_STEPS on cuda and on cpu, the rollouts collected on each device
+    from the cpu's draws (Gumbel noise, permutations; the cpu's action at
+    a flip): rollouts equal, flips near ties, params within UPDATE_ATOL
+    after each."""
+    tp = _train_path()
+    r = tp.e2(UPDATE_ENVS, UPDATE_STEPS, UPDATE_TRAIN_STEPS, DEV, "cpu",
+              log=lambda s: None)
+    bad = tp.faults([], r, yardstick=False)
+    check(not bad, f"train_step cuda vs cpu: {bad}")
+    diffs = [row["card_vs_ref"] for row in r["rows"]]
+    check(max(diffs) <= UPDATE_ATOL, f"cuda and cpu train_steps differ by "
+                                     f"{diffs}")
+    return (f"{UPDATE_TRAIN_STEPS} train_steps, each device's collect from "
+            f"the cpu's draws: rollouts equal, "
+            f"{sum(len(row['flips']) for row in r['rows'])} flips; cuda vs "
+            "cpu after each " + ", ".join(f"{d:.3g}" for d in diffs)
+            + " (cuda vs cuda' " + ", ".join(
+                f"{row['card_vs_card_']:.3g}" for row in r["rows"]) + ")")
 
 
 def identity_phase() -> str:
@@ -2968,7 +3043,8 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(4, "engine", t0, engine_phase(g) + "; "
               + pipeline_phase(g, state_dicts[g.name]) + "; "
-              + warp_pipeline_phase(g))
+              + warp_pipeline_phase(g)
+              + ("; " + game_over_phase() if g.name == "breakout" else ""))
 
     # 5. serve: the main path of each game
     launches = {}
@@ -3007,7 +3083,7 @@ def main() -> int:
 
     # 9-11. the update on cuda against cpu, learning, the CLI
     t0 = time.perf_counter()
-    phase(9, "update", t0, update_phase())
+    phase(9, "update", t0, update_phase() + "; " + train_step_phase())
     t0 = time.perf_counter()
     phase(10, "identity", t0, identity_phase())
     t0 = time.perf_counter()

@@ -64,7 +64,8 @@ def _port_files():
                     ROOT / "scripts" / "port_op_counts.py",
                     ROOT / "scripts" / "frame_kernel_variants.py",
                     ROOT / "scripts" / "port_gates.py",
-                    ROOT / "scripts" / "train_recipe.py"]
+                    ROOT / "scripts" / "train_recipe.py",
+                    ROOT / "scripts" / "train_path_vs_cpu.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -38,6 +38,7 @@ GRID_ROWS, GRID_COLS = bk.MAX_RENDER_ROWS, bk.N_COLS
 SPRITE0 = GRID_ROWS * GRID_COLS           # 432
 N_SPRITES = 1 + bk.MAX_BALLS              # paddle + balls
 PREP = 464                                # floats per frame (padded)
+CPU_BLOCK = 32                            # envs a plain version takes at once
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -106,22 +107,28 @@ def _frame_plain_one(p: torch.Tensor, lumas) -> torch.Tensor:
     ys = torch.arange(H, dtype=F32, device=dev)[:, None]
     xs = torch.arange(W, dtype=F32, device=dev)[None, :]
     walls = (ys >= 15) & ((xs < 12) | (xs >= 228) | (ys < 18))
-    img = torch.where(walls, wall, bg).to(F32).expand(n, H, W)
+    img = torch.where(walls, wall, bg).to(F32).expand(n, H, W).clone()
 
     grid = p[:, :SPRITE0].reshape(n, GRID_ROWS, GRID_COLS)
     band = grid.repeat_interleave(bk.BRICK_CELL_H, 1).repeat_interleave(
         bk.BRICK_CELL_W, 2)
-    cells = torch.full((n, H, W), -1.0, dtype=F32, device=dev)
     y0, x0 = bk.BRICK_BAND_Y0, 12
-    cells[:, y0:y0 + band.shape[1], x0:x0 + band.shape[2]] = band
-    img = torch.where(cells >= 0, cells, img)
+    cells = img[:, y0:y0 + band.shape[1], x0:x0 + band.shape[2]]
+    cells.copy_(torch.where(band >= 0, band, cells))   # -1: no brick
 
     sp = p[:, SPRITE0:SPRITE0 + 5 * N_SPRITES].reshape(n, N_SPRITES, 5)
     sp = sp[:, :, :, None, None]
-    cover = ((xs >= sp[:, :, 0]) & (xs < sp[:, :, 1]) & (ys >= sp[:, :, 2])
-             & (ys < sp[:, :, 3]) & (sp[:, :, 4] > 0))  # [N, sprite, H, W]
-    img = torch.where(cover[:, 0], pad, img)
-    img = torch.where(cover[:, 1:].any(1), ball, img)
+    # a sprite covers the pixels in both its row and its column interval:
+    # the outer product of the two 0/1 masks (u8: a product is faster than
+    # a broadcast bool and), one [H, W] mask at a time
+    in_cols = ((xs >= sp[:, :, 0]) & (xs < sp[:, :, 1])).to(U8)  # [N, s, 1, W]
+    in_rows = ((ys >= sp[:, :, 2]) & (ys < sp[:, :, 3])
+               & (sp[:, :, 4] > 0)).to(U8)                      # [N, s, H, 1]
+    img = torch.where((in_rows[:, 0] * in_cols[:, 0]).bool(), pad, img)
+    balls = in_rows[:, 1] * in_cols[:, 1]
+    for i in range(2, N_SPRITES):
+        balls |= in_rows[:, i] * in_cols[:, i]
+    img = torch.where(balls.bool(), ball, img)
     return img.clamp(0.0, 255.0)
 
 
@@ -285,8 +292,12 @@ def run_frame_kernel(name: str, prep: torch.Tensor, prep_len: int,
             raise ValueError(f"{name}: the warp form takes two frames")
         _check_tables(name, tables, hw, prep.device)
     if prep.device.type == "cpu":
-        frames = plain(prep, consts)
-        return frames if tables is None else obs.banded_warp(frames, tables)
+        # a block of envs at a time (each env's frame is its own): a
+        # block's full-size intermediates stay in the cache
+        return torch.cat([
+            plain(p, consts) if tables is None
+            else obs.banded_warp(plain(p, consts), tables)
+            for p in prep.split(CPU_BLOCK)])
     if prep.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {prep.device}")
     if not prep.is_contiguous():

@@ -22,7 +22,8 @@ Phases, each printing one line per game with its own wall time:
      (torch.profiler), the call's time (CUDA events, host dispatch
      included), the plain version's and the bound, and for the warp form
      the time of the path it replaces (fused kernel, then the two-matmul
-     warp);
+     warp); Breakout's warp form also exact and timed at N = WIDE_ENVS
+     (2 048, phase 8's width);
   4. the batched engine stepped on cuda and on cpu from the same seeds
      and actions: every state tensor bit-equal; the pipeline and the
      policy on cuda and on cpu: rewards equal, observations within 1 grey
@@ -32,7 +33,12 @@ Phases, each printing one line per game with its own wall time:
      pipeline (in-kernel warp, GAME_OVER_ENVS envs, one-life games) on
      cuda and on cpu until 90 % of the envs have finished a game, every
      engine field, reseed, frame stack, reward, done and finished game
-     equal after every step (scripts/train_path_vs_cpu.py's E1);
+     equal after every step (scripts/train_path_vs_cpu.py's E1); the
+     Space Invaders configs the frame kernel refuses (SI_REFUSED) on the
+     plain render route, make_rl_env(use_pallas=False), on cuda and on
+     cpu: every engine field bit-equal, observations within 1 grey level
+     after every step, no frame kernel launched, use_pallas True and
+     "auto" raising;
   5. serve (a main path): the committed PPO model through the regress
      entry point, 10 games for at most SERVE_STEPS agent steps, with the
      launch counts set to 0 just before and read just after; the game's
@@ -48,7 +54,17 @@ Phases, each printing one line per game with its own wall time:
      Breakout's warp kernel launches 128 times; metrics finite;
      seconds per update and frames/s; then one more Breakout update,
      train_step's collect and optimize halves timed apart, profiled (the
-     warp kernel's device time a rollout step);
+     warp kernel's device time a rollout step); then the JAX package's
+     documented 2 048-env PPO: ``run.main --num_envs=2048
+     --microbatches=2`` for one update at the recipe (the launch counts
+     set to 0 just before and read just after: 128 warp launches, finite
+     metrics; seconds, frames/s, collect and optimize and their peak
+     device memory), and one collected 2 048-env batch through
+     scripts/train_path_vs_cpu.py's ``take_apart``: three updates from
+     the same Adam state and permutations (microbatches=1, the same from
+     params x (1 + 1e-7 N(0, 1)), microbatches=2), each with its seconds
+     and peak memory: microbatches=2 held to the rule of
+     WIDE_MOVE_SHARE's comment;
   9. one PPO update on cuda against cpu from the same params, batch and
      permutations: params within UPDATE_ATOL; then UPDATE_TRAIN_STEPS
      whole train_steps of make_ppo on each device, each collecting its
@@ -188,7 +204,9 @@ Phases, each printing one line per game with its own wall time:
      backend and the frame kernels' launches of (a) and of (b)'s ranks.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
-phase, ``gate_launches`` from phase 12, ``heads_launches`` summed over
+phase; for Breakout's warp form also ``wide``, its phase-3 figures at
+2 048 envs, and ``wide_launches``, phase 8's 2 048-env run;
+``gate_launches`` from phase 12, ``heads_launches`` summed over
 phase 13's serve chunks, ``learner_launches`` summed over the runs of
 phases 18, 19 and 20; phase 21 runs no frame kernel;
 ``distributed_launches`` from phase 22), the total time,
@@ -256,6 +274,26 @@ UPDATE_TRAIN_STEPS = 2            # phase 9: whole train_steps, cuda vs cpu
 # at least the first many agent steps, at most the second
 GAME_OVER_ENVS, GAME_OVER_STEPS = 128, (40, 150)
 CLI_ENVS, CLI_UPDATES = 64, 1
+# phase 8: the JAX package's documented 2 048-env PPO with gradients
+# accumulated over microbatches (README: --num_envs=2048 --microbatches=2),
+# and the rule for its update against microbatches=1 (PERF.md, section 6):
+# every strong weight (first gradient above 1e-3 of its tensor's largest)
+# within WIDE_MOVE_SHARE of the update's largest move, and each metric
+# within rtol WIDE_RTOL of mb1's or twice its difference in the same
+# update from params x (1 + 1e-7 N(0, 1)). Each limit is the geometric
+# mean of the largest sound reading and the smallest reading of a fault
+# planted in ppo.update on this batch (scripts/train_path_vs_cpu.py
+# --part microbatches on an H100): params 1.47 % (cuDNN's other kernels
+# for 32 768 rows) against 42.7 % (a chunk left out); metrics 1.27e-5
+# against 1.77e-4 (each chunk's advantages normalised alone, which moves
+# the params less than the sound arms do)
+WIDE_ENVS, WIDE_MICROBATCHES, WIDE_MOVE_SHARE, WIDE_RTOL = 2048, 2, 0.08, 5e-5
+# phase 4: Space Invaders configs the SI frame kernel refuses, played on
+# the plain render route (make_rl_env(use_pallas=False)); the last shield
+# of each lies under the ship's first shots
+SI_REFUSED = {"four shields": [[84, 157], [148, 157], [212, 157], [60, 157]],
+              "two rows": [[84, 157], [60, 120]]}
+REFUSED_ENVS, REFUSED_STEPS = 64, 16
 WARP = 84
 THROUGHPUT_ENVS, THROUGHPUT_STEPS = 1024, 30
 ENGINE_ENVS, ENGINE_STEPS = 256, 150
@@ -723,35 +761,58 @@ def kernel_phase(g: Game):
                 err[name] = max(err[name], diff)
                 if label == "random play":
                     preps[name] = prep
-    timing = {}
-    for name, prep in preps.items():
-        n, frames = prep.shape[0], prep.shape[1]
-        # one select per pixel and frame, one max per pixel for two frames
-        n_ops = n * h * w * (2 * frames - 1)
-        tab = tables if name.endswith("_warp") else None
-        if tab is None:
-            n_bytes = prep.numel() * 4 + n * h * w
-            plain = lambda: g.ops.frame_plain(prep, consts)  # noqa: E731
-        else:
-            # the banded sums: one multiply and one add per tap
-            taps = tab.taps[:, :, 1].sum(1).tolist()
-            n_ops += n * 2 * (taps[0] * w + taps[1] * WARP)
-            n_bytes = prep.numel() * 4 + n * WARP * WARP
-            plain = lambda: g.ops.frame_warp_plain(  # noqa: E731
-                prep, consts, tab)
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
-        call = lambda: g.ops.render_frames(prep, consts, tab)  # noqa: E731
-        symbol = g.kernel + ("_warp" if tab is not None else "") + "_kernel"
-        timing[name] = dict(
-            ms=kernel_ms(call, symbol), call_ms=cuda_ms(call),
-            plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
-            n=n)
+    timing = {name: _kernel_timing(g, prep, consts,
+                                   tables if name.endswith("_warp") else None)
+              for name, prep in preps.items()}
     # the path the warp form replaces: the fused kernel, then two matmuls
     warp = obs.make_warp(h, w, WARP, DEV)
     pair = preps[names[1]]
     timing[names[2]]["replaced_ms"] = cuda_ms(
         lambda: warp(g.ops.render_frames(pair, consts)))
+    if g.name == "breakout":
+        # the warp form at the width of the 2 048-env training (phase 8b)
+        a, b = g.states(cfg, WIDE_ENVS, 2)
+        pairs = {label: torch.stack([g.prep(cfg, s1), g.prep(cfg, s2)], 1)
+                 for label, s1, s2 in (
+                     ("random play", a, b),
+                     ("edge cases", g.edges(a), g.edges(b, shift=1)))}
+        wide_err = 0
+        for label, pair in pairs.items():
+            got = g.ops.render_frames(pair, consts, tables)
+            diff = int((got.int() - g.ops.frame_warp_plain(
+                pair, consts, tables).int()).abs().max())
+            check(diff == 0, f"{names[2]} differs from its plain version by "
+                             f"{diff} at N={WIDE_ENVS} on {label}")
+            wide_err = max(wide_err, diff)
+        timing[names[2]]["wide"] = dict(
+            _kernel_timing(g, pairs["random play"], consts, tables),
+            max_abs_err=wide_err)
     return [label for label, _, _ in sets], err, timing
+
+
+def _kernel_timing(g: Game, prep, consts, tab) -> dict:
+    """The kernel's own time, the call's, the plain version's and the
+    bound on `prep` (f32[N, frames, P]), warped with `tab` if given."""
+    h, w = g.module.HEIGHT, g.module.WIDTH
+    n, frames = prep.shape[0], prep.shape[1]
+    # one select per pixel and frame, one max per pixel for two frames
+    n_ops = n * h * w * (2 * frames - 1)
+    if tab is None:
+        n_bytes = prep.numel() * 4 + n * h * w
+        plain = lambda: g.ops.frame_plain(prep, consts)  # noqa: E731
+    else:
+        # the banded sums: one multiply and one add per tap
+        taps = tab.taps[:, :, 1].sum(1).tolist()
+        n_ops += n * 2 * (taps[0] * w + taps[1] * WARP)
+        n_bytes = prep.numel() * 4 + n * WARP * WARP
+        plain = lambda: g.ops.frame_warp_plain(  # noqa: E731
+            prep, consts, tab)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    call = lambda: g.ops.render_frames(prep, consts, tab)  # noqa: E731
+    symbol = g.kernel + ("_warp" if tab is not None else "") + "_kernel"
+    return dict(ms=kernel_ms(call, symbol), call_ms=cuda_ms(call),
+                plain_ms=cuda_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+                n=n)
 
 
 def _engine_start(g: Game, st, d):
@@ -1042,6 +1103,76 @@ def game_over_phase() -> str:
             f"of the envs")
 
 
+def si_refused_phase() -> str:
+    """The Space Invaders configs the SI frame kernel refuses (SI_REFUSED)
+    on the plain render route, make_rl_env(use_pallas=False), on cuda and
+    on cpu from the same seeds and actions (the intro pause skipped, FIRE
+    often): every engine field and reseed bit-equal, rewards, dones and
+    lives equal and observations within 1 grey level after every step;
+    no frame kernel launched; use_pallas True and "auto" raise."""
+    base = si.config_to_json(si.default_config("cpu"))
+    n, parts = REFUSED_ENVS, []
+    _reset_launches()
+    for label, shields in SI_REFUSED.items():
+        d = dict(base, shields=shields)
+        for use_pallas in (True, "auto"):
+            try:
+                make_rl_env("space_invaders", n, config=si.config_from_json(
+                    d, DEV), use_pallas=use_pallas, device=DEV)
+            except ValueError:
+                continue
+            check(False, f"use_pallas={use_pallas!r} took the {label} "
+                         "config the SI frame kernel refuses")
+        envs = {dev: make_rl_env("space_invaders", n,
+                                 config=si.config_from_json(d, dev),
+                                 use_pallas=False, device=dev)
+                for dev in (DEV, "cpu")}
+        states = {}
+        for dev, env in envs.items():
+            st = env.reset(torch.arange(n, device=dev))[0]
+            game = st.env.game.replace(
+                life_display_timer=torch.ones_like(st.env.game.lives))
+            states[dev] = dataclasses.replace(
+                st, env=dataclasses.replace(st.env, game=game))
+        r = np.random.default_rng(8)
+        worst, reward = 0, 0.0
+        for i in range(REFUSED_STEPS):
+            a = r.integers(0, envs["cpu"].num_actions, size=n)
+            a[r.random(n) < 0.3] = 1
+            out = {}
+            for dev, env in envs.items():
+                states[dev], o, rew, done, info = env.step(
+                    states[dev], torch.as_tensor(a, device=dev))
+                out[dev] = (o, rew, done, info["lives"])
+            for k in (1, 2, 3):
+                check(torch.equal(out[DEV][k].cpu(), out["cpu"][k]),
+                      f"{label}: reward/done/lives differ at step {i}")
+            for f in si.FIELDS:
+                check(torch.equal(getattr(states[DEV].env.game, f).cpu(),
+                                  getattr(states["cpu"].env.game, f)),
+                      f"{label}: engine field {f} differs at step {i}")
+            check(torch.equal(states[DEV].env.seeds.cpu(),
+                              states["cpu"].env.seeds),
+                  f"{label}: reseeds differ at step {i}")
+            worst = max(worst, int((out[DEV][0].cpu().int()
+                                    - out["cpu"][0].int()).abs().max()))
+            reward += float(out["cpu"][1].sum())
+        check(worst <= 1, f"{label}: obs differ by {worst} grey levels")
+        alpha = states["cpu"].env.game.shield_alpha
+        hit = int((alpha[:, -1].sum((1, 2))
+                   < int(si.SHIELD_MASK.sum())).sum())
+        check(hit > 0, f"{label}: no laser hit the extra shield")
+        parts.append(f"{label} {shields}: {n} envs x {REFUSED_STEPS} steps "
+                     f"cuda = cpu (engine, reseeds, rewards, dones, lives), "
+                     f"obs max diff {worst}, reward {reward:g}, the extra "
+                     f"shield eroded in {hit} envs")
+    launches = {k: v for k, v in render_cuda.LAUNCHES.items() if v}
+    check(not launches, f"use_pallas=False launched {launches}")
+    return ("space invaders, use_pallas=False on the configs the frame "
+            "kernel refuses (True and \"auto\" raise): " + "; ".join(parts)
+            + "; no frame kernel launched")
+
+
 class _Rows:
     """A logger for ``learn``: one dict per update, stamped with the host
     clock when the update's metrics were read (learn reads them as
@@ -1172,6 +1303,98 @@ def train_profile_phase() -> str:
                      f"optimize, {RECIPE['noptepochs']} epochs"))
     del collected, state, short, env
     return detail
+
+
+def wide_train_phase():
+    """The JAX package's documented 2 048-env PPO (README: 2048 envs,
+    --microbatches=2) through the CLI entry point: ``run.main --alg=ppo
+    --env=BreakoutToyboxNoFrameskip-v4 --num_envs=2048 --microbatches=2``
+    for one update at the recipe, the launch counts set to 0 just before
+    and read just after: 128 warp kernel launches, finite metrics; its
+    seconds, frames/s, collect and optimize halves and their peak device
+    memory. Returns (launches, detail)."""
+    log = SCRATCH / "wide"
+    shutil.rmtree(log, ignore_errors=True)
+    nsteps = run.ALG_DEFAULTS["ppo"]["nsteps"]
+    frames = WIDE_ENVS * nsteps * 4
+    _reset_launches()
+    with _TimedSteps() as timed:
+        state = run.main(["--alg=ppo", "--env=BreakoutToyboxNoFrameskip-v4",
+                          f"--num_envs={WIDE_ENVS}",
+                          f"--microbatches={WIDE_MICROBATCHES}",
+                          f"--num_timesteps={frames}", f"--log_path={log}",
+                          f"--device={DEV}"])
+        torch.cuda.synchronize()
+    launches = dict(render_cuda.LAUNCHES)
+    check(state.update == 1 and len(timed.rows) == 1,
+          f"the 2048-env run trained {state.update} updates")
+    check(launches["breakout_frame_fused_warp"] == nsteps,
+          f"breakout_frame_fused_warp launched "
+          f"{launches['breakout_frame_fused_warp']} times: {launches}")
+    with open(log / "progress.csv") as f:
+        row = list(csv.DictReader(f))[-1]
+    for k in ppo.METRICS:
+        check(math.isfinite(float(row[f"loss/{k}"])),
+              f"2048-env {k} = {row[f'loss/{k}']}")
+    (collect, optimize), (peak_c, peak_o) = timed.rows[0], timed.peaks[0]
+    return launches, (
+        f"run.main --num_envs={WIDE_ENVS} --microbatches="
+        f"{WIDE_MICROBATCHES}, one update at the recipe: "
+        f"{collect + optimize:.2f} s ({frames / (collect + optimize):.0f} "
+        f"frames/s): collect {collect:.2f} s (peak {peak_c / 2**30:.2f} "
+        f"GiB), optimize {optimize:.2f} s (peak {peak_o / 2**30:.2f} GiB); "
+        + ", ".join(f"{k} {float(row[f'loss/{k}']):.4g}"
+                    for k in ppo.METRICS)
+        + f"; launches {launches}")
+
+
+def wide_update_phase() -> str:
+    """One collected 2 048-env batch at the recipe taken apart by
+    scripts/train_path_vs_cpu.py's ``take_apart``: the first
+    minibatch's gradients (which weights are strong, and its device
+    kernels), then three whole updates from the same zero Adam state
+    and permutations, each with its seconds and peak device memory: mb1
+    (microbatches=1), mb1' (the same from the params x (1 + 1e-7
+    N(0, 1))) and mb2 (microbatches=WIDE_MICROBATCHES). mb2 is held to
+    the rule of WIDE_MOVE_SHARE's comment."""
+    tp = _train_path()
+    mb2, p1 = f"mb{WIDE_MICROBATCHES}", "mb1'"
+    r = tp.take_apart(
+        WIDE_ENVS, RECIPE["nsteps"], DEV, {"mb1": tp.Arm(DEV)},
+        {"mb1": tp.Arm(DEV), p1: tp.Arm(DEV, perturbed=True),
+         mb2: tp.Arm(DEV, WIDE_MICROBATCHES)},
+        [(p1, "mb1"), (mb2, "mb1")], [], log=lambda s: None)
+    check(r["moved"] > 1e-4, f"the 2048-env update moved {r['moved']}")
+    share = r["share"][f"{mb2} - mb1"]
+    check(share <= WIDE_MOVE_SHARE,
+          f"microbatches={WIDE_MICROBATCHES} is {share:.3g} of the update's "
+          f"move {r['moved']:.3g} from microbatches=1 on the strong "
+          f"weights, more than {WIDE_MOVE_SHARE:g}")
+    m = {k: v["metrics"] for k, v in r["arms"].items()}
+    for k in ppo.METRICS:
+        off = abs(m[mb2][k] - m["mb1"][k])
+        yard = abs(m[p1][k] - m["mb1"][k])
+        check(off <= WIDE_RTOL * abs(m["mb1"][k]) or off <= 2 * yard,
+              f"{k}: microbatches={WIDE_MICROBATCHES} {m[mb2][k]!r} against "
+              f"mb1 {m['mb1'][k]!r} ({p1} within {yard:.3g})")
+    apart = {k: v["all"] for k, v in r["update"].items()}
+    kernels = [name for name, _ in r["kernels"]["mb1"]][:3]
+    return (f"breakout {WIDE_ENVS} envs, one collected batch: the update "
+            f"moved up to {r['moved']:.3g}; from mb1 on all / strong "
+            "weights: " + ", ".join(
+                f"{k} {v['all']:.3g} / {v['strong']:.3g} "
+                f"({r['share'][k]:.3g} of the move)"
+                for k, v in r["update"].items())
+            + f"; rule: {mb2} strong <= {WIDE_MOVE_SHARE:g} x move; "
+            f"({mb2} - mb1) / ({p1} - mb1) on all weights "
+            f"{apart[mb2 + ' - mb1'] / apart[p1 + ' - mb1']:.3g}; "
+            + "; ".join(f"{k} {v['seconds']:.2f} s, peak "
+                        f"{v['peak'] / 2**30:.2f} GiB" for k, v in
+                        r["arms"].items())
+            + f"; metrics mb1 / {mb2} / {p1} " + ", ".join(
+                f"{k} {m['mb1'][k]:.9g} / {m[mb2][k]:.9g} / {m[p1][k]:.9g}"
+                for k in ppo.METRICS)
+            + f"; the first minibatch's largest kernels {kernels}")
 
 
 def update_phase() -> str:
@@ -1878,22 +2101,27 @@ DQN_ATOL, ACER_ATOL, TRPO_RTOL = 1e-6, 1e-5, 1e-4
 class _TimedSteps:
     """Times every train_step of the learners (all are ppo.TrainStep:
     ``collect``, then ``optimize``) on the host clock, each half to a
-    sync, and keeps the last step's TrainStep, state and batch."""
+    sync, records each half's peak device memory, and keeps the last
+    step's TrainStep, state and batch."""
 
     def __enter__(self):
-        self.rows, self.last = [], None
+        self.rows, self.peaks, self.last = [], [], None
         self.call = ppo.TrainStep.__call__
         rows = self
 
         def timed(step, state):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             collected = step.collect(state)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             out = step.optimize(state, collected)
             torch.cuda.synchronize()
             rows.rows.append((t1 - t0, time.perf_counter() - t1))
+            rows.peaks.append((peak, torch.cuda.max_memory_allocated()))
             rows.last = (step, state, collected)
             return out
 
@@ -3035,7 +3263,11 @@ def main() -> int:
                   f"({v['bound_by']})" + (
                       f", replaced path (fused kernel + matmul warp) "
                       f"{v['replaced_ms']:.4f} ms" if "replaced_ms" in v
-                      else "") for k, v in t.items()))
+                      else "") + (
+                      "; at N={n}: kernel {ms:.4f} ms, call {call_ms:.4f} "
+                      "ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                      "ms ({bound_by}), exact".format(**v["wide"])
+                      if "wide" in v else "") for k, v in t.items()))
 
     # 4. engine, pipeline and policy: cuda against cpu
     state_dicts = {g.name: load_state_dict(MODELS / g.model) for g in GAMES}
@@ -3044,7 +3276,9 @@ def main() -> int:
         phase(4, "engine", t0, engine_phase(g) + "; "
               + pipeline_phase(g, state_dicts[g.name]) + "; "
               + warp_pipeline_phase(g)
-              + ("; " + game_over_phase() if g.name == "breakout" else ""))
+              + ("; " + game_over_phase() if g.name == "breakout" else "")
+              + ("; " + si_refused_phase() if g.name == "space_invaders"
+                 else ""))
 
     # 5. serve: the main path of each game
     launches = {}
@@ -3080,6 +3314,11 @@ def main() -> int:
         phase(8, "train", t0, detail)
     t0 = time.perf_counter()
     phase(8, "train profile", t0, train_profile_phase())
+    t0 = time.perf_counter()
+    wide_launches, detail = wide_train_phase()
+    phase(8, "train 2048", t0, detail)
+    t0 = time.perf_counter()
+    phase(8, "update 2048", t0, wide_update_phase())
 
     # 9-11. the update on cuda against cpu, learning, the CLI
     t0 = time.perf_counter()
@@ -3217,7 +3456,9 @@ def main() -> int:
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                library_ms=None))
+                library_ms=None,
+                **({"wide": t["wide"], "wide_launches": wide_launches[name]}
+                   if "wide" in t else {})))
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 """Hold the port's PPO training path on the card against its CPU path, at
 the recipe's width, past game overs and over several updates.
 
-    python3 scripts/train_path_vs_cpu.py [--part all|e1|e2] \
-        [--envs 1024] [--steps 1000] [--max-steps 2000] [--updates 4] \
-        [--out build/train_path]
+    python3 scripts/train_path_vs_cpu.py \
+        [--part all|e1|e2|update0|microbatches] [--envs 1024] \
+        [--steps 1000] [--max-steps 2000] [--updates 4] \
+        [--deterministic] [--out build/train_path]
 
 E1, the training env past game overs: ``make_rl_env("breakout", N,
 inkernel_warp=..., seed_stride=N)`` on the card and on the CPU, as
@@ -51,6 +52,13 @@ tie (margin above twice the step's largest logit difference). It prints
 a line per run and update and, last, one JSON object (also written to
 ``<out>/result.json``); it exits 1 on a fault.
 
+``--part update0`` and ``--part microbatches`` take one update apart
+(``update0``'s and ``microbatches``' docstrings): E2's first update on
+the two devices, and the microbatched update against the whole-minibatch
+one on the card alone, at the README's 2 048 envs (``--envs 2048``),
+with two faults planted; ``--deterministic`` keeps cuDNN to its
+deterministic algorithms.
+
 ``--device`` and ``--ref`` name the two devices (cuda and cpu); the CPU
 against itself (``--device cpu``) is the harness's own check, which
 tests/test_torch_train_path.py runs at a tiny size.
@@ -61,6 +69,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -534,37 +543,105 @@ def _e2_line(row: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
-# E2's update 0, taken apart
+# One update taken apart: E2's update 0, and the microbatched update
 # ---------------------------------------------------------------------------
 
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-3
 WEAK_GRAD = 1e-3
+PLANTS = ("chunk normalised", "chunk dropped")
 
 
-def update0(n: int = 1024, nsteps: int = 128, device="cuda", ref="cpu",
-            log=print) -> dict:
-    """E2's first update from one batch (collected on ``ref`` from
-    ``init_fn(0)``), one set of params and one set of permutations on
-    both devices, taken apart. First the first minibatch's loss and
-    gradients, as ``ppo.update`` takes them: a semantic fault (a term,
-    an op or a precision that differs) would show there, and the rule
-    calls it one where the losses are more than LOSS_RTOL apart
-    (relative) or a gradient tensor more than GRAD_RTOL of its largest
-    entry. Then the whole update (16 Adam steps) on ``ref``, on
-    ``device``, on ``device`` again and on ``ref`` at half its threads
-    (the same CPU sums in another order): each pair's largest param
-    difference, over all weights and split between the weights whose
-    first gradient exceeds WEAK_GRAD of its tensor's largest ("strong")
-    and the rest ("weak")."""
+@dataclasses.dataclass(frozen=True)
+class Arm:
+    """One way to take the first minibatch's loss and gradients, or the
+    whole update: on ``device``, summed over ``microbatches`` chunks as
+    ``ppo.update`` sums them, each minibatch's rows in ``order``
+    ("drawn", "reversed" or "shuffled"), from the params x (1 + EPS
+    N(0, 1)) where ``perturbed``, on ``threads`` CPU threads (0: as
+    set), and the whole update with a fault ``planted`` (PLANTS)."""
+    device: str
+    microbatches: int = 1
+    order: str = "drawn"
+    perturbed: bool = False
+    threads: int = 0
+    planted: str | None = None
+
+
+@contextlib.contextmanager
+def planted(fault, microbatches: int):
+    """``ppo.update`` with a semantic fault of the microbatched sum:
+    each chunk's advantages normalised over the chunk alone ("chunk
+    normalised") or each minibatch's last chunk left out of its gradient
+    ("chunk dropped"); None: the update as it is."""
+    real, calls = ppo.ppo_loss, itertools.count()
+
+    def loss(*args, **kwargs):
+        if fault == "chunk normalised":
+            kwargs["normalize_adv"] = True
+        out = real(*args, **kwargs)
+        if fault == "chunk dropped" and \
+                next(calls) % microbatches == microbatches - 1:
+            return out[0] * 0, out[1]
+        return out
+
+    if fault is not None:
+        ppo.ppo_loss = loss
+    try:
+        yield
+    finally:
+        ppo.ppo_loss = real
+
+
+def device_kernels(fn) -> tuple:
+    """(fn(), its 8 largest device kernels as [name, summed us], largest
+    first) under torch.profiler: which cuDNN kernels a shape takes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return out, [[k[:120], v] for k, v in
+                 sorted(us.items(), key=lambda kv: -kv[1])[:8]]
+
+
+def within_blocks(perm: torch.Tensor, size: int, order) -> torch.Tensor:
+    """``perm`` with each block of ``size`` (one minibatch) rearranged by
+    ``order(block)``: the same minibatches, their rows in another order."""
+    return torch.cat([order(b) for b in perm.split(size)])
+
+
+def take_apart(n: int, nsteps: int, on, first: dict, whole: dict,
+               pairs: list, held: list, log=print) -> dict:
+    """One update from one batch, one set of params and one set of
+    permutations, taken apart arm by arm (``Arm``). The batch is
+    collected on ``on`` by ``make_ppo``'s ``init_fn(0)`` at ``n`` envs x
+    ``nsteps`` (the recipe otherwise, full f32, the in-kernel warp).
+    ``first`` (name -> Arm): the first minibatch's loss and gradients;
+    the first arm's gradients split the weights into strong (above
+    WEAK_GRAD of the tensor's largest) and weak, and each arm on a card
+    lists its device kernels. ``whole`` (name -> Arm): the whole update
+    (16 Adam steps from zero Adam state), with its seconds, peak device
+    memory and metrics; ``moved`` is the first arm's largest param move.
+    ``pairs`` ("a - b" for each (a, b)): the losses (relative), the
+    gradients (of each tensor's largest) and the params after the whole
+    update (all, strong and weak weights; ``share``: strong over
+    ``moved``), where both arms ran. A fault where a ``held`` pair's
+    losses are more than LOSS_RTOL apart or its gradients GRAD_RTOL."""
     full_f32()
     kw = dict(RECIPE, nsteps=nsteps)
-    env = training_env(n, "kernel", ref)
+    env = training_env(n, "kernel", on)
     init_fn, train_step, _ = ppo.make_ppo(
-        env, device=ref, total_updates=TOTAL_UPDATES, **kw)
+        env, device=on, total_updates=TOTAL_UPDATES, **kw)
     state = init_fn(0)
-    params = {k: v.clone() for k, v in state.module.state_dict().items()}
-    batch, _ = train_step.collect(state)
-    nbatch = batch[0].shape[0]
+    params = {k: v.cpu().clone() for k, v in
+              state.module.state_dict().items()}
+    collected, _ = train_step.collect(state)
+    del state, train_step
+    nbatch = collected[0].shape[0]
     gen = torch.Generator()
     gen.manual_seed(0)
     perms = [torch.randperm(nbatch, generator=gen)
@@ -572,54 +649,95 @@ def update0(n: int = 1024, nsteps: int = 128, device="cuda", ref="cpu",
     lrnow, cliprnow = ppo.anneal(0, TOTAL_UPDATES, kw["lr"], kw["cliprange"])
     hp = ppo.Hyper(nminibatches=kw["nminibatches"], ent_coef=kw["ent_coef"])
     mbsize = nbatch // hp.nminibatches
+    batches = {}
 
-    def module_on(d):
+    def batch_on(d):
+        if d not in batches:
+            batches[d] = tuple(x.to(d) for x in collected)
+        return batches[d]
+
+    def permutations(arm):
+        ps = [p.to(arm.device) for p in perms]
+        if arm.order == "reversed":
+            return [within_blocks(p, mbsize, lambda b: b.flip(0))
+                    for p in ps]
+        if arm.order == "shuffled":
+            g = torch.Generator()
+            g.manual_seed(1)
+            return [within_blocks(p, mbsize, lambda b: b[torch.randperm(
+                len(b), generator=g).to(b.device)]) for p in ps]
+        return ps
+
+    def module_on(arm):
         module = policies.build_policy(env.obs_shape, env.num_actions,
-                                       kw["network"], device=d)[0]
-        module.load_state_dict(params)
+                                       kw["network"], device=arm.device)[0]
+        module.load_state_dict(perturbed(params, EPS) if arm.perturbed
+                               else params)
         return module
 
-    def first_minibatch(d):
-        module = module_on(d)
-        idx = perms[0][:mbsize]
-        mb = tuple(x[idx].to(d) for x in batch)
-        mb = mb[:-1] + (ppo.normalize(mb[-1]),)
-        loss, _ = ppo.ppo_loss(module, mb, cliprnow, hp.ent_coef,
-                               hp.vf_coef, env.num_actions,
-                               normalize_adv=False,
-                               mean=lambda x: x.sum() / mbsize)
-        grads = torch.autograd.grad(loss, list(module.parameters()))
-        return float(loss.detach()), [g.cpu() for g in grads]
+    def first_minibatch(arm):
+        module, b = module_on(arm), batch_on(arm.device)
+        idx = permutations(arm)[0][:mbsize]
+        adv = ppo.normalize(b[-1][idx])
+        size = mbsize // arm.microbatches
+        loss, grads = 0.0, None
+        for j in range(arm.microbatches):
+            sl = slice(j * size, (j + 1) * size)
+            ub = tuple(x[idx[sl]] for x in b[:-1]) + (adv[sl],)
+            part, _ = ppo.ppo_loss(module, ub, cliprnow, hp.ent_coef,
+                                   hp.vf_coef, env.num_actions,
+                                   normalize_adv=False,
+                                   mean=lambda x: x.sum() / mbsize)
+            g = torch.autograd.grad(part, list(module.parameters()))
+            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+            loss += float(part.detach())
+        return loss, [g.detach().cpu() for g in grads]
 
-    def whole(d, threads=0):
-        module = module_on(d)
+    def update(arm):
+        module = module_on(arm)
+        card = torch.device(arm.device).type == "cuda"
         saved = torch.get_num_threads()
-        torch.set_num_threads(threads or saved)
+        torch.set_num_threads(arm.threads or saved)
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
         try:
-            ppo.update(module, ppo.AdamState.zeros_like(
-                list(module.parameters())), tuple(x.to(d) for x in batch),
-                [p.to(d) for p in perms], lrnow, cliprnow, hp,
-                env.num_actions)
+            with planted(arm.planted, arm.microbatches):
+                metrics = ppo.update(
+                    module, ppo.AdamState.zeros_like(
+                        list(module.parameters())), batch_on(arm.device),
+                    permutations(arm), lrnow, cliprnow,
+                    dataclasses.replace(hp, microbatches=arm.microbatches),
+                    env.num_actions)
+            if card:
+                torch.cuda.synchronize()
         finally:
             torch.set_num_threads(saved)
-        return {k: v.cpu() for k, v in module.state_dict().items()}
+        record = dict(seconds=time.perf_counter() - t,
+                      peak=torch.cuda.max_memory_allocated() if card
+                      else None,
+                      metrics={k: float(v) for k, v in metrics.items()})
+        return {k: v.cpu() for k, v in module.state_dict().items()}, record
 
     t0 = time.perf_counter()
-    loss, grads = {}, {}
-    for name, d in (("ref", ref), ("card", device), ("card again", device)):
-        loss[name], grads[name] = first_minibatch(d)
-    names = [k for k, _ in module_on(ref).named_parameters()]
+    loss, grads, kernels = {}, {}, {}
+    for name, arm in first.items():
+        if torch.device(arm.device).type == "cuda":
+            (loss[name], grads[name]), kernels[name] = device_kernels(
+                lambda: first_minibatch(arm))
+        else:
+            loss[name], grads[name] = first_minibatch(arm)
+    base = next(iter(first))
+    names = [k for k, _ in module_on(first[base]).named_parameters()]
     strong = {k: g.abs() > WEAK_GRAD * g.abs().max()
-              for k, g in zip(names, grads["ref"])}
-
-    def grad_rel(a, b):
-        return max(float((x - y).abs().max() / y.abs().max())
-                   for x, y in zip(grads[a], grads[b]))
-
-    half = max(1, torch.get_num_threads() // 2)
-    after = {"ref": whole(ref), "card": whole(device),
-             "card again": whole(device), "ref, half the threads":
-             whole(ref, half)}
+              for k, g in zip(names, grads[base])}
+    after, arms = {}, {}
+    for name, arm in whole.items():
+        after[name], arms[name] = update(arm)
+    start = next(iter(whole))
+    moved = max(float((after[start][k] - params[k]).abs().max())
+                for k in params)
 
     def apart(a, b):
         d = {k: (after[a][k] - after[b][k]).abs() for k in params}
@@ -632,30 +750,75 @@ def update0(n: int = 1024, nsteps: int = 128, device="cuda", ref="cpu",
                     strong=worst(lambda k: strong[k]),
                     weak=worst(lambda k: ~strong[k]))
 
+    def grad_rel(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(grads[a], grads[b]))
+
+    key = {(a, b): f"{a} - {b}" for a, b in pairs}
     r = dict(
         envs=n, nsteps=nsteps, threads=torch.get_num_threads(),
-        half_threads=half,
-        loss=loss, loss_rel={k: abs(loss[k] - loss["ref"]) / abs(loss["ref"])
-                             for k in ("card", "card again")},
-        grad_rel={"card": grad_rel("card", "ref"),
-                  "card again": grad_rel("card again", "card")},
+        cudnn_deterministic=torch.backends.cudnn.deterministic, loss=loss,
+        loss_rel={key[a, b]: abs(loss[a] - loss[b]) / abs(loss[b])
+                  for a, b in pairs if a in loss and b in loss},
+        grad_rel={key[a, b]: grad_rel(a, b) for a, b in pairs
+                  if a in grads and b in grads},
         weak_share=sum(int((~v).sum()) for v in strong.values())
         / sum(v.numel() for v in strong.values()),
-        moved=max(float((after["ref"][k] - params[k]).abs().max())
-                  for k in params),
-        update={"card - ref": apart("card", "ref"),
-                "card - card again": apart("card", "card again"),
-                "ref - ref at half the threads":
-                apart("ref", "ref, half the threads")},
-        seconds=time.perf_counter() - t0)
-    r["fault"] = (max(r["loss_rel"].values()) > LOSS_RTOL
-                  or r["grad_rel"]["card"] > GRAD_RTOL)
-    log(f"update 0 taken apart: first minibatch loss {loss['ref']:.9g} "
-        f"(card {loss['card']:.9g}), relative {r['loss_rel']}; gradients "
-        f"apart (of each tensor's largest) {r['grad_rel']}; weak weights "
-        f"{r['weak_share']:.3f}; the whole update moved {r['moved']:.3g}, "
+        moved=moved, update={key[a, b]: apart(a, b) for a, b in pairs
+                             if a in after and b in after},
+        arms=arms, kernels=kernels, seconds=time.perf_counter() - t0)
+    r["share"] = {k: v["strong"] / moved for k, v in r["update"].items()}
+    r["fault"] = any(r["loss_rel"][key[p]] > LOSS_RTOL
+                     or r["grad_rel"][key[p]] > GRAD_RTOL for p in held)
+    log(f"taken apart at {n} envs: first minibatch loss {loss[base]:.9g}, "
+        f"losses apart (relative) {r['loss_rel']}; gradients apart (of "
+        f"each tensor's largest) {r['grad_rel']}; weak weights "
+        f"{r['weak_share']:.3f}; the whole update moved {moved:.3g}, "
         f"apart {r['update']}; {r['seconds']:.0f} s")
     return r
+
+
+def update0(n: int = 1024, nsteps: int = 128, device="cuda", ref="cpu",
+            log=print) -> dict:
+    """E2's first update taken apart (``take_apart``) from a batch
+    collected on ``ref``: the first minibatch's loss and gradients on
+    ``ref``, ``device`` and ``device`` again, a semantic fault (a term,
+    an op or a precision that differs) where ``device`` is more than
+    LOSS_RTOL or GRAD_RTOL from ``ref``; then the whole update on
+    ``ref``, ``device``, ``device`` again and ``ref`` at half its threads
+    (the same CPU sums in another order)."""
+    half = max(1, torch.get_num_threads() // 2)
+    first = {"ref": Arm(ref), "card": Arm(device),
+             "card again": Arm(device)}
+    whole = dict(first, **{"ref, half the threads": Arm(ref, threads=half)})
+    return take_apart(
+        n, nsteps, ref, first, whole,
+        [("card", "ref"), ("card again", "card"),
+         ("ref, half the threads", "ref")], [("card", "ref")], log)
+
+
+def microbatches(n: int = 2048, nsteps: int = 128, device="cuda",
+                 log=print) -> dict:
+    """The microbatched update (``ppo.update`` with ``microbatches`` 2 and
+    4) taken apart (``take_apart``) against ``microbatches=1`` (mb1) on
+    ``device`` alone, from a batch collected there. The first minibatch:
+    whole, again, its rows reversed, and summed over 2 and 4 chunks; a
+    fault where a chunked sum is more than LOSS_RTOL or GRAD_RTOL from
+    the whole one. The whole update against mb1: the sound arms (mb1
+    again, rows reversed and shuffled in each minibatch, params
+    perturbed, mb2, mb2 again, mb4) and PLANTS planted at mb2, the two
+    readings between which a bound on mb2 - mb1 is set."""
+    d = device
+    first = {"mb1": Arm(d), "mb1 again": Arm(d),
+             "mb1 reversed": Arm(d, order="reversed"), "mb2": Arm(d, 2),
+             "mb4": Arm(d, 4)}
+    whole = dict(first, **{"mb1 shuffled": Arm(d, order="shuffled"),
+                           "mb1'": Arm(d, perturbed=True),
+                           "mb2 again": Arm(d, 2)},
+                 **{f"mb2 {p}": Arm(d, 2, planted=p) for p in PLANTS})
+    pairs = [(a, "mb1") for a in whole if a != "mb1"] + [("mb2 again", "mb2")]
+    return take_apart(n, nsteps, d, first, whole, pairs,
+                      [("mb2", "mb1"), ("mb4", "mb1")], log)
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +853,7 @@ def faults(e1_runs: list, e2_run: dict | None,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--part", choices=("all", "e1", "e2", "e1-one",
-                                      "update0"),
+                                      "update0", "microbatches"),
                    default="all")
     p.add_argument("--device", default="cuda")
     p.add_argument("--ref", default="cpu")
@@ -708,9 +871,12 @@ def main(argv=None) -> int:
     p.add_argument("--threads", type=int, default=0,
                    help="torch's CPU threads (0: its default)")
     p.add_argument("--out", default="build/train_path")
+    p.add_argument("--deterministic", action="store_true",
+                   help="cuDNN's deterministic algorithms only")
     args = p.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
+    torch.backends.cudnn.deterministic = args.deterministic
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("train_path_vs_cpu: no CUDA device", file=sys.stderr)
         return 2
@@ -730,6 +896,12 @@ def main(argv=None) -> int:
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    if args.part == "microbatches":
+        r = dict(head, **microbatches(args.envs, args.nsteps, args.device,
+                                      log))
+        (out / "microbatches.json").write_text(json.dumps(r, indent=1))
+        print(json.dumps(r))
+        return 1 if r["fault"] else 0
     if args.part == "update0":
         r = dict(head, **update0(args.envs, args.nsteps, args.device,
                                  args.ref, log))

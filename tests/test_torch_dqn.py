@@ -23,6 +23,7 @@
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -367,9 +368,8 @@ def test_run_main_trains_saves_and_plays_deepq(tmp_path, monkeypatch,
                                                capsys):
     """``--alg=deepq`` (conv_only, dueling) trains on Breakout, saves a
     file that JAX's load_params reads, and plays eps-greedy."""
-    monkeypatch.setattr(run, "PLAY_ENVS", 2)
-    monkeypatch.setattr(run, "PLAY_CHUNKS", 1)
-    monkeypatch.setattr(run, "PLAY_CHUNK", 3)
+    monkeypatch.setattr(run, "play", functools.partial(
+        run.play, n_envs=2, max_chunks=1, chunk=3))
     path = str(tmp_path / "dqn.model")
     state = run.main(["--alg=dqn", "--env=BreakoutToyboxNoFrameskip-v4",
                       "--num_envs=2", "--train_freq=2", "--batch_size=4",

@@ -280,6 +280,16 @@ def test_cli_gates_ppo_and_refuses_what_is_not_ported(capsys):
                                  n_episodes=1, device="cpu", chunk=4,
                                  max_frames=16)
     assert np.isfinite(scores).all()
+    # JAX's nlstm: a narrower recurrent head's weights load strictly
+    from toybox_tpu_torch.rl.policies import build_eval_head
+    narrow = build_eval_head("ppo", (84, 84, 4), 4, "cnn_lstm", nlstm=16,
+                             device="cpu")[0]
+    scores = runner.play_batched("breakout", None, None,
+                                 state_dict=narrow.state_dict(), alg="ppo",
+                                 network="cnn_lstm", n_episodes=1,
+                                 device="cpu", chunk=4, max_frames=16,
+                                 nlstm=16)
+    assert np.isfinite(scores).all()
     with pytest.raises(ValueError, match="unknown family"):
         cli_main(["breakout", "--family=nope", "--device=cpu"])
     with pytest.raises(ValueError, match="unknown alg 'nope'.*a2c"):

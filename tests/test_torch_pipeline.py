@@ -69,12 +69,20 @@ def test_pipeline_matches_jax_other_games(game, steps):
     assert tuple(tenv.obs_shape) == tuple(jenv.obs_shape)
     assert tenv.num_actions == jenv.num_actions
     acts = r.integers(0, tenv.num_actions, size=(steps, n))
+    assert _step_both(jenv, tenv, seeds, acts)[0] > 0
+
+
+def _step_both(jenv, tenv, seeds, acts):
+    """Reset both pipelines from ``seeds`` and step them with ``acts``
+    [steps, N]: rewards, dones and lives equal, observations within 1
+    grey level after the reset and every step. Returns the total raw
+    reward and both final states."""
     jst, jo = jax.jit(jenv.reset)(jnp.asarray(seeds))
     tst, to = tenv.reset(torch.as_tensor(seeds.astype(np.int64)))
     assert np.abs(np.asarray(jo).astype(int) - to.numpy()).max() <= 1
     jstep = jax.jit(jenv.step)
     total = 0.0
-    for i in range(steps):
+    for i in range(len(acts)):
         jst, jo, jr, jd, ji = jstep(jst, jnp.asarray(acts[i]))
         tst, to, tr, td, ti = tenv.step(tst, torch.as_tensor(acts[i]))
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
@@ -86,7 +94,70 @@ def test_pipeline_matches_jax_other_games(game, steps):
         diff = np.abs(np.asarray(jo).astype(int) - to.numpy().astype(int))
         assert diff.max() <= 1, f"step {i}: obs differ by {diff.max()}"
         total += float(np.asarray(ji["raw_reward"]).sum())
-    assert total > 0
+    return total, jst, tst
+
+
+#: Space Invaders configs the SI frame kernel refuses (render_si.si_consts);
+#: the last shield of each lies under the ship's first shots
+SI_REFUSED = {"four shields": [[84, 157], [148, 157], [212, 157], [60, 157]],
+              "two rows": [[84, 157], [60, 120]]}
+
+
+@pytest.mark.parametrize("case", [*SI_REFUSED, "breakout"])
+def test_use_pallas_false_matches_jax(case):
+    """``use_pallas=False``, the plain render and matmul warp route, on
+    the Space Invaders configs the frame kernel refuses and on Breakout's
+    default config, against JAX's ``use_pallas=False``: rewards, dones and
+    lives equal, observations within 1 grey level (N = 2, 48 steps, FIRE
+    every 5th: Space Invaders' 32-step intro pause, then 16 steps in which
+    the ship's lasers erode the extra shield); the shield pixels equal."""
+    from toybox_tpu.games import space_invaders as jsi
+    from toybox_tpu_torch.games import space_invaders as tsi
+
+    n, steps = 2, 48
+    game, jcfg, tcfg = "breakout", None, None
+    if case in SI_REFUSED:
+        d = dict(tsi.config_to_json(tsi.default_config("cpu")),
+                 shields=SI_REFUSED[case])
+        game, jcfg, tcfg = ("space_invaders", jsi.config_from_json(d),
+                            tsi.config_from_json(d, "cpu"))
+    jenv = j_make_rl_env(game, n, config=jcfg, use_pallas=False)
+    tenv = t_make_rl_env(game, n, config=tcfg, use_pallas=False,
+                         device="cpu")
+    r = np.random.default_rng(14)
+    acts = r.integers(0, tenv.num_actions, size=(steps, n))
+    acts[::5] = 1
+    _, jst, tst = _step_both(jenv, tenv, np.arange(n, dtype=np.uint32) + 9,
+                             acts)
+    if game == "space_invaders":
+        alpha = tst.env.game.shield_alpha
+        np.testing.assert_array_equal(alpha.numpy(),
+                                      np.asarray(jst.env.game.shield_alpha))
+        assert alpha.shape[1] == len(SI_REFUSED[case])
+        eroded = alpha[:, -1].sum((1, 2)) < int(tsi.SHIELD_MASK.sum())
+        assert eroded.all(), "a laser should have hit the extra shield"
+
+
+def test_use_pallas_routes_raise():
+    """``use_pallas=True`` raises for the configs the SI kernel refuses
+    and for a game with no frame kernel; ``use_pallas=False`` with
+    ``inkernel_warp=True`` raises (JAX ignores the warp flag there)."""
+    from toybox_tpu_torch.games import space_invaders as tsi
+
+    base = tsi.config_to_json(tsi.default_config("cpu"))
+    for shields, match in zip(SI_REFUSED.values(),
+                              ("at most 3 shields", "one row")):
+        cfg = tsi.config_from_json(dict(base, shields=shields), "cpu")
+        for use_pallas in (True, "auto"):
+            with pytest.raises(ValueError, match=match):
+                t_make_rl_env("space_invaders", 2, config=cfg,
+                              use_pallas=use_pallas, device="cpu")
+    with pytest.raises(ValueError, match="use_pallas=True.*gridworld"):
+        t_make_rl_env("gridworld", 2, use_pallas=True, device="cpu")
+    for game in ("breakout", "gridworld"):
+        with pytest.raises(ValueError, match="inkernel_warp"):
+            t_make_rl_env(game, 2, use_pallas=False, inkernel_warp=True,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("game,steps", [("breakout", 30),

@@ -2,7 +2,8 @@
 
 - GAE on the same values, rewards, dones and last value: within 1e-6.
 - One full update on identical inputs: the JAX ``train_step`` from
-  ``init_fn(0)`` on Breakout (2 envs, nsteps 8, 2 minibatches, 2 epochs)
+  ``init_fn(0)`` on Breakout (2 envs, nsteps 8, 2 minibatches, 2 epochs;
+  each minibatch's gradient whole, and accumulated over 2 microbatches)
   against the port's GAE and update fed the JAX rollout (obs, actions,
   values, neglogps, rewards, dones), the JAX epoch permutations and the
   JAX initial params. Tolerance: params within 1e-6 absolute (0.4 % of
@@ -18,6 +19,7 @@
 """
 
 import csv
+import functools
 import os
 
 import jax
@@ -66,15 +68,14 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def jax_breakout():
+def _jax_breakout(microbatches: int) -> dict:
     """The JAX make_ppo on Breakout, its initial state, one train_step
     from it, and the same update's inputs replayed outside train_step with
     its key schedule."""
     env = j_make_rl_env("breakout", NENVS)
     init_fn, train_step, _ = jppo.make_ppo(
         env, network="cnn", nsteps=NSTEPS, nminibatches=NMB,
-        noptepochs=NEPOCHS)
+        noptepochs=NEPOCHS, microbatches=microbatches)
     state0 = init_fn(0)
     rollout = _closure(train_step, "_rollout")
     jgae = _closure(train_step, "_gae")
@@ -97,7 +98,22 @@ def jax_breakout():
     inputs = _np_tree(replay(state0))
     state1, metrics = jax.jit(train_step)(state0)
     return dict(env=env, state0=state0, state1=state1, inputs=inputs,
-                metrics=_np_tree(metrics), gae=jgae)
+                metrics=_np_tree(metrics), gae=jgae,
+                microbatches=microbatches)
+
+
+@pytest.fixture(scope="module")
+def jax_breakout():
+    return _jax_breakout(1)
+
+
+@pytest.fixture(scope="module", params=[1, 2])
+def jax_update(request, jax_breakout):
+    """``jax_breakout`` at ``microbatches`` 1 and 2 (the JAX update that
+    normalises each minibatch's advantages, then accumulates the
+    gradients of its equal chunks)."""
+    return jax_breakout if request.param == 1 else _jax_breakout(
+        request.param)
 
 
 def test_gae_matches_jax(jax_breakout):
@@ -118,7 +134,8 @@ def test_gae_matches_jax(jax_breakout):
     np.testing.assert_allclose(got.numpy(), x["advs"], rtol=0, atol=1e-6)
 
 
-def test_one_update_matches_jax_train_step(jax_breakout):
+def test_one_update_matches_jax_train_step(jax_update):
+    jax_breakout = jax_update
     x = jax_breakout["inputs"]
     assert float(np.abs(x["rewards"]).sum()) > 0     # a reward to learn from
     tenv = t_make_rl_env("breakout", NENVS, device="cpu")
@@ -137,7 +154,9 @@ def test_one_update_matches_jax_train_step(jax_breakout):
         advs))
     lrnow, cliprnow = ppo.anneal(0, 1, 2.5e-4, 0.1)
     metrics = ppo.update(module, adam, batch, list(t["perms"].long()),
-                         lrnow, cliprnow, ppo.Hyper(nminibatches=NMB),
+                         lrnow, cliprnow, ppo.Hyper(
+                             nminibatches=NMB,
+                             microbatches=jax_breakout["microbatches"]),
                          tenv.num_actions)
     want = params_from_flax(_np_tree(jax_breakout["state1"].params))
     before = params_from_flax(_np_tree(jax_breakout["state0"].params))
@@ -363,9 +382,8 @@ def test_run_main_refuses_other_algs_and_plays(tmp_path, monkeypatch,
         run.main(_tiny_cli(tmp_path, "--alg=ddpg"))
     with pytest.raises(ValueError, match="key=value"):
         run.main(_tiny_cli(tmp_path, "--oops"))
-    monkeypatch.setattr(run, "PLAY_ENVS", 2)
-    monkeypatch.setattr(run, "PLAY_CHUNKS", 1)
-    monkeypatch.setattr(run, "PLAY_CHUNK", 3)
+    monkeypatch.setattr(run, "play", functools.partial(
+        run.play, n_envs=2, max_chunks=1, chunk=3))
     state = run.main(_tiny_cli(tmp_path, "--play", "--alg=ppo2"))
     assert state.update == 2
     capsys.readouterr()

@@ -8,7 +8,8 @@
   (the warp's f32 matmuls may sum in another order).
 - scripts/train_path_vs_cpu.py, which holds the card's training path
   against the CPU's, run with the CPU against itself at a tiny size: no
-  difference and no flip, so that its code cannot rot unrun.
+  difference and no flip, so that its code cannot rot unrun; and its
+  microbatched-update part on the CPU.
 """
 
 import importlib.util
@@ -118,3 +119,41 @@ def test_train_step_harness_cpu_against_itself():
                                         "actions", "engine")), rollout
         assert rollout["grey_max"] == 0 and rollout["value_diff"] == 0
     assert not tp.faults([], r)
+
+
+def test_update0_harness_cpu_against_itself():
+    """``--part update0`` at 4 envs x 8 steps with the CPU on both sides:
+    the same arm again is itself, half the threads is float order, and
+    the rule finds no fault."""
+    r = tp.update0(n=4, nsteps=8, device="cpu", ref="cpu",
+                   log=lambda s: None)
+    assert not r["fault"], r
+    assert r["loss_rel"]["card - ref"] == 0 == r["grad_rel"]["card - ref"]
+    assert r["update"]["card - ref"]["all"] == 0, r["update"]
+    assert r["update"]["card again - card"]["all"] == 0, r["update"]
+    assert r["moved"] > 1e-4
+    assert r["update"]["ref, half the threads - ref"]["all"] \
+        < 0.05 * r["moved"], r["update"]
+
+
+def test_microbatches_harness_on_the_cpu():
+    """``--part microbatches`` at 4 envs x 8 steps: the chunked sums and
+    the other row orders are float order apart from the whole minibatch
+    (within the rule's bounds; the same update again is itself), every
+    sound arm moves the strong weights by far less than the update does,
+    and each planted fault by far more."""
+    r = tp.microbatches(n=4, nsteps=8, device="cpu", log=lambda s: None)
+    assert not r["fault"], r
+    assert r["loss_rel"]["mb1 again - mb1"] == 0 \
+        == r["grad_rel"]["mb1 again - mb1"]
+    assert r["update"]["mb1 again - mb1"]["all"] == 0, r["update"]
+    assert r["update"]["mb2 again - mb2"]["all"] == 0, r["update"]
+    assert r["moved"] > 1e-4
+    planted = {f"mb2 {p} - mb1" for p in tp.PLANTS}
+    assert max(v for k, v in r["share"].items() if k not in planted) \
+        < 0.05, r["share"]
+    assert min(r["share"][k] for k in planted) > 0.2, r["share"]
+    assert set(r["arms"]) == {"mb1", "mb1 again", "mb1 reversed",
+                              "mb1 shuffled", "mb1'", "mb2", "mb2 again",
+                              "mb4", "mb2 chunk normalised",
+                              "mb2 chunk dropped"}

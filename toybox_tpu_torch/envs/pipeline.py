@@ -4,8 +4,9 @@
 - skip-4 stepping, where only the last two of every four frames are
   rendered, by the game's fused max-pool frame kernel (ops/render_cuda.py,
   render_si.py, render_amidar.py); a game with no frame kernel
-  (Gridworld, as in the JAX package) takes the max of two
-  ``luma2d(render)`` frames, in plain torch ops;
+  (Gridworld, as in the JAX package), or any game under
+  ``use_pallas=False``, takes the max of two ``luma2d(render)`` frames,
+  in plain torch ops;
 - the 84x84 bilinear warp as two f32 matmuls, or with
   ``inkernel_warp=True`` inside the fused frame kernel (the reset frame is
   still warped by the matmuls, as in the JAX package);
@@ -61,26 +62,46 @@ class PipelineState:
 def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
                 frame_size: int = 84, frame_stack: int = 4,
                 episodic_life: bool = True, clip_rewards: bool = True,
-                inkernel_warp: bool = False, seed_stride=None,
-                device="cuda") -> BatchedEnvFns:
+                use_pallas: str | bool = "auto", inkernel_warp: bool = False,
+                seed_stride=None, device="cuda") -> BatchedEnvFns:
     """BatchedEnvFns with DeepMind preprocessing:
     step(state, actions) -> (state, obs[N,84,84,k], reward, done, info),
     where done marks life loss under episodic_life (the env auto-resets
-    itself on true game over). ``inkernel_warp`` warps each step's
-    max-pooled frame inside the frame kernel (one launch per step, only
-    [N, 84, 84] written) instead of with two matmuls after it; for a
-    game with no frame kernel it raises ValueError. ``seed_stride`` is
-    the auto-reset's (``make_batched_env``)."""
+    itself on true game over).
+
+    ``use_pallas`` picks the render route, as in the JAX package: "auto"
+    takes the game's frame kernels (FRAME_KERNEL_GAMES; on the card this
+    is what JAX's "auto" does on its TPU) and the plain render for a game
+    without one; True takes the frame kernels and raises ValueError for a
+    game without one; False takes the plain render (``luma2d(render)``)
+    and the matmul warp for every game, and launches no frame kernel. A
+    config that a frame kernel refuses (Space Invaders with more than 3
+    shields, or shields on two rows) raises under "auto" and True, and
+    renders under False. ``inkernel_warp`` warps each step's max-pooled
+    frame inside the frame kernel (one launch per step, only [N, 84, 84]
+    written) instead of with two matmuls after it; with no frame kernel
+    (use_pallas False, or a game without one) it raises ValueError,
+    where the JAX package ignores it. ``seed_stride`` is the auto-reset's
+    (``make_batched_env``)."""
     if skip < 2:
         raise ValueError("make_rl_env requires skip >= 2 (the last two "
                          "frames are always rendered for the max-pool)")
+    if use_pallas == "auto":
+        use_pallas = game_name in _RENDERERS
+    if use_pallas and game_name not in _RENDERERS:
+        raise ValueError(f"use_pallas=True: {game_name!r} has no frame "
+                         f"kernel (only {', '.join(FRAME_KERNEL_GAMES)})")
+    if inkernel_warp and not use_pallas:
+        raise ValueError(f"inkernel_warp: no frame kernel renders "
+                         f"{game_name!r} (use_pallas=False, or a game "
+                         f"other than {', '.join(FRAME_KERNEL_GAMES)})")
     module = get_game(game_name)
     cfg = config if config is not None else module.default_config(device)
     dev = cfg.device
     inner = make_batched_env(game_name, num_envs, config=cfg,
                              obs_mode="none", fast_auto_reset=True,
                              seed_stride=seed_stride)
-    if game_name in _RENDERERS:
+    if use_pallas:
         factory, factory2 = _RENDERERS[game_name]
         render_gray = factory(cfg)
         warp = obs_ops.make_warp(module.HEIGHT, module.WIDTH, frame_size,
@@ -93,9 +114,6 @@ def make_rl_env(game_name: str, num_envs: int, config=None, skip: int = 4,
             def render_max_warp(g1, g2):
                 return warp(render_max(g1, g2))
     else:
-        if inkernel_warp:
-            raise ValueError(f"inkernel_warp: {game_name!r} has no frame "
-                             f"kernel (only {', '.join(FRAME_KERNEL_GAMES)})")
         warps = {}
 
         def render_gray(game):

@@ -63,13 +63,16 @@ def full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def eval_policy(alg: str, network: str, env, seed: int, device):
+def eval_policy(alg: str, network: str, env, seed: int, device,
+                nlstm: int = 128):
     """(module, step, carry): the eval head of ``alg``/``network`` for
-    ``env``, ``step(obs, generator, carry, prev_done) -> (actions,
-    carry)`` for every head (a feed-forward head passes the carry
-    through), and the first carry (None for a feed-forward head)."""
+    ``env`` (a recurrent head ``nlstm`` wide), ``step(obs, generator,
+    carry, prev_done) -> (actions, carry)`` for every head (a
+    feed-forward head passes the carry through), and the first carry
+    (None for a feed-forward head)."""
     module, p_step = build_eval_head(alg, env.obs_shape, env.num_actions,
-                                     network, seed=seed, device=device)
+                                     network, nlstm=nlstm, seed=seed,
+                                     device=device)
     if network in RECURRENT_NETWORKS:
         def step(obs, generator, carry, prev_done):
             actions, _, _, carry = p_step(obs, generator, carry, prev_done)

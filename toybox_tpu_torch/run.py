@@ -90,10 +90,6 @@ def default_network(alg: str) -> str:
     return alg_defaults(alg).get("network", "cnn")
 
 
-# --play: envs, chunks and agent steps per chunk
-PLAY_ENVS, PLAY_CHUNKS, PLAY_CHUNK = 8, 40, 64
-
-
 def common_arg_parser():
     parser = argparse.ArgumentParser(
         description="toybox_tpu_torch RL trainer (baselines.run surface)")
@@ -203,18 +199,17 @@ def train(args, extra_kwargs):
 
 
 @torch.no_grad()
-def play(args, state):
-    """Eval rollouts of the trained policy on PLAY_ENVS batched envs,
-    printing each finished episode's raw return; the host reads the
-    returns once per chunk of PLAY_CHUNK agent steps. Returns them. The
-    actions are JAX's eval heads': epsilon-greedy at 0.01 on a deepq
-    Q network, else drawn from the policy's logits (the recurrent ones
-    threading the carry)."""
+def play(args, state, n_envs=8, max_chunks=40, chunk=64):
+    """Eval rollouts of the trained policy on ``n_envs`` batched envs for
+    at most ``max_chunks`` chunks, printing each finished episode's raw
+    return; the host reads the returns once per chunk of ``chunk`` agent
+    steps. Returns them. The actions are JAX's eval heads':
+    epsilon-greedy at 0.01 on a deepq Q network, else drawn from the
+    policy's logits (the recurrent ones threading the carry)."""
     from toybox_tpu_torch.envs.pipeline import make_rl_env
     from toybox_tpu_torch.rl.distributions import CategoricalPd
     from toybox_tpu_torch.rl.dqn import QNetwork, epsilon_greedy
 
-    n_envs = PLAY_ENVS
     game = env_id_to_game(args.env)
     dev = torch.device(args.device)
     env = make_rl_env(game, n_envs, episodic_life=False, clip_rewards=False,
@@ -229,9 +224,9 @@ def play(args, state):
         carry = module.initial_carry(n_envs)
         done = torch.zeros(n_envs, dtype=torch.bool, device=dev)
     returns = []
-    for _ in range(PLAY_CHUNKS):
+    for _ in range(max_chunks):
         finished = []
-        for _ in range(PLAY_CHUNK):
+        for _ in range(chunk):
             if isinstance(module, QNetwork):
                 actions = epsilon_greedy(module(st.frames), 0.01, gen)
             elif recurrent:

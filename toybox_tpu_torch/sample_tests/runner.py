@@ -34,13 +34,14 @@ def capture_setup(scenario, device="cuda"):
 def play_batched(game: str, cfg_js, st_js, *, state_dict, alg: str,
                  network: str, n_episodes: int, seed: int = 0,
                  max_frames: int = 20_000, chunk: int = 128,
-                 device="cuda"):
+                 nlstm: int = 128, device="cuda"):
     """Play n_episodes in parallel from an injected (config, state) set-up
     (None for the game's default); returns the raw (uncapped, unclipped)
     episode scores, numpy f32. ``state_dict=None`` plays a randomly
     initialised policy (smoke); else it is loaded strictly into the eval
-    head of ``alg``/``network``. Recurrent networks thread the LSTM carry,
-    restarting it for the envs whose previous step ended an episode."""
+    head of ``alg``/``network``. Recurrent networks (an LSTM ``nlstm``
+    wide) thread the LSTM carry, restarting it for the envs whose
+    previous step ended an episode."""
     from toybox_tpu_torch.envs.pipeline import make_rl_env
     from toybox_tpu_torch.games import get_game
     from toybox_tpu_torch.regress import eval_policy
@@ -50,7 +51,7 @@ def play_batched(game: str, cfg_js, st_js, *, state_dict, alg: str,
            else module.default_config(device))
     env = make_rl_env(game, n_episodes, config=cfg, episodic_life=False,
                       clip_rewards=False, device=device)
-    net, step, carry = eval_policy(alg, network, env, seed, device)
+    net, step, carry = eval_policy(alg, network, env, seed, device, nlstm)
     if state_dict is not None:
         net.load_state_dict(state_dict)
     dev = torch.device(device)

@@ -202,6 +202,17 @@ Phases, each printing one line per game with its own wall time:
      ring's; (c) cnn_im2col and cnn_coutpad forward on the card within
      HEADS_ATOL (scaled) of the cpu's. The seconds of each part, the
      backend and the frame kernels' launches of (a) and of (b)'s ranks.
+ 23. headline (a main path, bench_torch.py's line): for each game
+     ``bench_env_steps`` at HEADLINE_ENVS (8 192) envs and
+     ``bench_pipeline`` at 1 024 envs, ``make_rl_env``'s defaults (the
+     fused max-pool kernel and the matmul warp), cut in depth
+     (HEADLINE_STATE_STEPS, HEADLINE_PIPE_STEPS, HEADLINE_REPS), and
+     ``bench_train`` for Breakout (1 024 envs at the recipe, one warm-up
+     and HEADLINE_REPS updates), the launch counts set to 0 just before
+     each and read just after: none in state stepping, the single-frame
+     kernel once a reset and the fused kernel once a pipeline or collect
+     step; rates finite and positive, both MFU keys on an H100; the line
+     (bench_torch.headline) on a line of its own.
 
 Then a JSON line of the kernels (``launches`` from the serve or the train
 phase; for Breakout's warp form also ``wide``, its phase-3 figures at
@@ -209,7 +220,8 @@ phase; for Breakout's warp form also ``wide``, its phase-3 figures at
 ``gate_launches`` from phase 12, ``heads_launches`` summed over
 phase 13's serve chunks, ``learner_launches`` summed over the runs of
 phases 18, 19 and 20; phase 21 runs no frame kernel;
-``distributed_launches`` from phase 22), the total time,
+``distributed_launches`` from phase 22, ``headline_launches`` from phase
+23), the total time,
 and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 Convolutions and matmuls run in full f32 (TF32 off). Scratch files (the
@@ -3215,6 +3227,84 @@ def distributed_phase() -> tuple:
     return launches, backend, "; ".join(parts)
 
 
+# phase 23: bench_torch.py's headline line at its published widths (8 192
+# envs stepping state only, 1 024 envs through the pipeline and the PPO
+# update), cut in depth to HEADLINE_STATE_STEPS and HEADLINE_PIPE_STEPS
+# steps a rep and HEADLINE_REPS rep (one more to warm up; bench_torch.py
+# itself runs 2 048 and 256 steps and 3 reps); the update for Breakout
+# only (phase 8 trains the other two games)
+HEADLINE_ENVS, HEADLINE_STATE_STEPS, HEADLINE_PIPE_STEPS = 8192, 32, 16
+HEADLINE_REPS = 1
+
+
+def _headline_launches(label: str, want: dict) -> dict:
+    torch.cuda.synchronize()
+    got = {k: v for k, v in render_cuda.LAUNCHES.items() if v}
+    check(got == {k: v for k, v in want.items() if v},
+          f"{label}: frame kernel launches {got}, want {want}")
+    return got
+
+
+def headline_phase() -> tuple:
+    """A main path: bench_torch's rate functions on the card, each with
+    the launch counts set to 0 just before and read just after. State
+    stepping launches no frame kernel; the pipeline launches the game's
+    single-frame kernel once (its reset) and the fused max-pool kernel
+    once a step; the Breakout update the single-frame kernel once (the
+    envs' reset) and the fused kernel once a collect step (128 an
+    update). Every rate finite and positive, and on an H100 both MFU keys
+    present. Returns (launches by kernel, the JSON line, detail)."""
+    import bench_torch
+
+    pipe_envs = min(HEADLINE_ENVS, bench_torch.PIPE_ENVS)
+    per_game, launches, parts = {}, {}, []
+    for g in GAMES:
+        single, fused = g.kernel, g.kernel + "_fused"
+        _reset_launches()
+        t0 = time.perf_counter()
+        sps = bench_torch.bench_env_steps(
+            g.name, HEADLINE_ENVS, HEADLINE_STATE_STEPS, reps=HEADLINE_REPS,
+            device=DEV)
+        _headline_launches(f"{g.name} state stepping", {})
+        t1 = time.perf_counter()
+        _reset_launches()
+        fps = bench_torch.bench_pipeline(
+            g.name, pipe_envs, HEADLINE_PIPE_STEPS, reps=HEADLINE_REPS,
+            device=DEV)
+        got = _headline_launches(f"{g.name} pipeline", {
+            single: 1, fused: (1 + HEADLINE_REPS) * HEADLINE_PIPE_STEPS})
+        t2 = time.perf_counter()
+        train = {}
+        detail = (f"{g.name}: {sps:.1f} env steps/s ({HEADLINE_ENVS} x "
+                  f"{HEADLINE_STATE_STEPS}, {t1 - t0:.1f} s), pipeline "
+                  f"{fps:.1f} frames/s ({pipe_envs} x {HEADLINE_PIPE_STEPS}, "
+                  f"{t2 - t1:.1f} s)")
+        if g.name == "breakout":
+            _reset_launches()
+            train = bench_torch.bench_train(g.name, pipe_envs,
+                                            reps=HEADLINE_REPS, device=DEV)
+            n_train = (1 + HEADLINE_REPS) * bench_torch.TRAIN_NSTEPS
+            train_got = _headline_launches(f"{g.name} train", {
+                single: 1, fused: n_train})
+            got = {k: got.get(k, 0) + train_got.get(k, 0)
+                   for k in set(got) | set(train_got)}
+            if "H100" in torch.cuda.get_device_name(0):
+                check({"train_mfu_bf16_peak", "train_mfu_f32_peak"}
+                      <= set(train), f"MFU keys missing on an H100: {train}")
+            detail += (f", train {train} ({1 + HEADLINE_REPS} updates, "
+                       f"{time.perf_counter() - t2:.1f} s)")
+        per_game[g.name] = bench_torch.game_entry(sps, fps, train)
+        rates = [v for k, v in per_game[g.name].items()
+                 if k.endswith("_per_s")]
+        check(all(math.isfinite(v) and v > 0 for v in rates),
+              f"{g.name} headline rates {per_game[g.name]}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        parts.append(detail + f"; launches {got}")
+    line = bench_torch.headline(per_game, HEADLINE_ENVS, torch.device(DEV))
+    return launches, line, "; ".join(parts)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3439,6 +3529,12 @@ def main() -> int:
     dist_launches, _, detail = distributed_phase()
     phase(22, "distributed", t0, detail)
 
+    # 23. the headline line of bench_torch.py, at full width, cut in depth
+    t0 = time.perf_counter()
+    headline_launches, line, detail = headline_phase()
+    print(json.dumps(line), flush=True)
+    phase(23, "headline", t0, detail)
+
     kernels = []
     for g in GAMES:
         for name, line in zip((g.kernel, g.kernel + "_fused",
@@ -3453,6 +3549,7 @@ def main() -> int:
                 heads_launches=heads_launches.get(name, 0),
                 learner_launches=learner_launches.get(name, 0),
                 distributed_launches=dist_launches.get(name, 0),
+                headline_launches=headline_launches.get(name, 0),
                 max_abs_err=err[name], ms=t["ms"], call_ms=t["call_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],

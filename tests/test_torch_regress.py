@@ -65,7 +65,11 @@ def _port_files():
                     ROOT / "scripts" / "frame_kernel_variants.py",
                     ROOT / "scripts" / "port_gates.py",
                     ROOT / "scripts" / "train_recipe.py",
-                    ROOT / "scripts" / "train_path_vs_cpu.py"]
+                    ROOT / "scripts" / "train_path_vs_cpu.py",
+                    ROOT / "bench_torch.py",
+                    ROOT / "scripts" / "port_ppo_step_timing.py",
+                    ROOT / "scripts" / "port_behavior_matrix.py",
+                    ROOT / "scripts" / "port_start_images.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

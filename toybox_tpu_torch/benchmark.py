@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import numpy as np
@@ -29,11 +30,42 @@ def _mean_sem(xs):
     return float(xs.mean()), float(sem)
 
 
-def _clock(device) -> float:
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; RuntimeError for CUDA without a card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA was asked for and no GPU is present "
+                           "(pass --device cpu to run on the CPU)")
+    return dev
+
+
+def clock(device) -> float:
     """The host clock after the device has finished its queued work."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def device_line(device) -> str:
+    """The name and power limit of the card ``device`` runs on, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them, or "cpu". The card's row is found by its uuid:
+    nvidia-smi numbers every card of the host, whatever
+    CUDA_VISIBLE_DEVICES hands to this process."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    uuid = str(torch.cuda.get_device_properties(dev).uuid)
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    for row in out:
+        card, rest = row.split(",", 1)
+        if card.strip().lower().removeprefix("gpu-") == \
+                uuid.lower().removeprefix("gpu-"):
+            return rest.strip()
+    raise RuntimeError(f"nvidia-smi lists no card with uuid {uuid}: {out}")
 
 
 def bench_raw_engine(game: str, steps: int, reps: int, device="cuda"):
@@ -47,10 +79,10 @@ def bench_raw_engine(game: str, steps: int, reps: int, device="cuda"):
         tb.apply_ale_action(0)  # warm up
     rates = []
     for _ in range(reps):
-        t0 = _clock(device)
+        t0 = clock(device)
         for _ in range(steps):
             tb.apply_ale_action(0)
-        rates.append(steps / (_clock(device) - t0))
+        rates.append(steps / (clock(device) - t0))
     return _mean_sem(rates)
 
 
@@ -74,12 +106,12 @@ def bench_gym_wrapped(game: str, steps: int, reps: int, device="cuda"):
     env.reset(seed=0)
     rates = []
     for _ in range(reps):
-        t0 = _clock(device)
+        t0 = clock(device)
         for i in range(steps):
             _, _, term, trunc, _ = env.step(i % env.action_space.n)
             if term or trunc:
                 env.reset()
-        rates.append(steps / (_clock(device) - t0))
+        rates.append(steps / (clock(device) - t0))
     env.close()
     return _mean_sem(rates)
 
@@ -103,9 +135,9 @@ def bench_batched(game: str, n_envs: int, steps: int, reps: int,
     state = rollout(state)
     rates = []
     for _ in range(reps):
-        t0 = _clock(device)
+        t0 = clock(device)
         state = rollout(state)
-        rates.append(n_envs * steps / (_clock(device) - t0))
+        rates.append(n_envs * steps / (clock(device) - t0))
     return _mean_sem(rates)
 
 
